@@ -1,0 +1,166 @@
+"""ResNet-C4 backbone and the res5 head block, the port of
+``mask_rcnn_tpu/models/resnet.py``.
+
+Activations are NHWC at every function boundary, as in the JAX package.
+``conv2d`` hands cuDNN/oneDNN the NCHW view ``x.permute(0, 3, 1, 2)``,
+which for a contiguous NHWC tensor is an NCHW tensor in
+``torch.channels_last`` memory format, and returns the NHWC view of its
+channels-last output: no layout copy on either side.
+
+  * conv1 7x7/2 pad 3 -> affine -> relu -> maxpool 3x3/2 **pad 1**, as a
+    plain direct conv (the JAX package's space-to-depth rewrite equals it to
+    ~1e-7 relative in f32, mask_rcnn_tpu/models/resnet.py:103-150);
+  * res2 (stride 1), res3 (stride 2), res4 (stride 2) -> stride-16 C4
+    features; res5 runs in the RoI head;
+  * caffe/chainer bottleneck: the stride sits on the 1x1 ``conv1`` and the
+    projection ``conv4``;
+  * frozen BatchNorm as an unfolded per-channel affine (scale, bias), op for
+    op like the JAX package.
+
+Conv weights are OIHW (the bridge in ``utils/checkpoint.py`` transposes the
+JAX package's HWIO).
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+RESNET_N_BLOCKS = {50: (3, 4, 6, 3), 101: (3, 4, 23, 3)}
+
+# (in, mid, out) channels for res2..res5.
+STAGE_CHANNELS = {
+    "res2": (64, 64, 256),
+    "res3": (256, 128, 512),
+    "res4": (512, 256, 1024),
+    "res5": (1024, 512, 2048),
+}
+STAGE_STRIDES = {"res2": 1, "res3": 2, "res4": 2, "res5": 2}
+
+
+def nchw(x):
+    """NHWC tensor -> its NCHW (channels_last when contiguous) view."""
+    return x.permute(0, 3, 1, 2)
+
+
+def nhwc(x):
+    """NCHW tensor -> its NHWC view."""
+    return x.permute(0, 2, 3, 1)
+
+
+def conv2d(x, w, stride=1, padding=0):
+    """NHWC conv; w is OIHW; symmetric integer padding."""
+    return nhwc(F.conv2d(nchw(x), w, stride=stride, padding=padding))
+
+
+def affine(x, params):
+    """Per-channel scale/bias, the frozen-BN replacement."""
+    return x * params["scale"] + params["bias"]
+
+
+def max_pool_3x3_s2_p1(x):
+    """3x3/2 max pool with pad=1 (implicit -inf padding)."""
+    return nhwc(F.max_pool2d(nchw(x), kernel_size=3, stride=2, padding=1))
+
+
+def stem_forward(params, x):
+    """conv1 7x7/2 pad3 -> affine -> relu -> maxpool 3x3/2 pad1."""
+    h = conv2d(x, params["conv1"]["W"], stride=2, padding=3)
+    h = torch.relu(affine(h, params["bn1"]))
+    return max_pool_3x3_s2_p1(h)
+
+
+def bottleneck(params, x, stride=1, projection=False):
+    h = conv2d(x, params["conv1"]["W"], stride=stride)
+    h = torch.relu(affine(h, params["bn1"]))
+    h = conv2d(h, params["conv2"]["W"], padding=1)
+    h = torch.relu(affine(h, params["bn2"]))
+    h = conv2d(h, params["conv3"]["W"])
+    h = affine(h, params["bn3"])
+    if projection:
+        sc = conv2d(x, params["conv4"]["W"], stride=stride)
+        sc = affine(sc, params["bn4"])
+    else:
+        sc = x
+    return torch.relu(h + sc)
+
+
+def building_block(params, x, n_blocks, stride):
+    h = bottleneck(params["a"], x, stride=stride, projection=True)
+    for i in range(1, n_blocks):
+        h = bottleneck(params["b%d" % i], h)
+    return h
+
+
+def extractor_forward(params, x, n_layers=50):
+    """conv1 .. res4: (N, H, W, 3) -> (N, H/16, W/16, 1024) C4 features."""
+    blocks = RESNET_N_BLOCKS[n_layers]
+    h = stem_forward(params, x)
+    for i, stage in enumerate(["res2", "res3", "res4"]):
+        h = building_block(params[stage], h, blocks[i], STAGE_STRIDES[stage])
+    return h
+
+
+def res5_forward(params, x, stride=2):
+    """res5 on pooled RoI features: (R, S, S, 1024) -> (R, S/stride,
+    S/stride, 2048)."""
+    return building_block(params, x, RESNET_N_BLOCKS[50][3], stride)
+
+
+# ---------------------------------------------------------------------------
+# Initialization: the JAX package's distributions
+# (mask_rcnn_tpu/models/resnet.py:210-275), drawn from a torch.Generator
+# (not the same random bits).
+
+# From-scratch init attenuates each residual branch through its last affine
+# (mask_rcnn_tpu/models/resnet.py:226-232); pretrained weights overwrite it.
+RESIDUAL_AFFINE_SCALE = 0.1
+
+
+def _conv_init(gen, kh, kw, cin, cout):
+    """he_normal OIHW conv weight."""
+    std = (2.0 / (kh * kw * cin)) ** 0.5
+    return torch.randn((cout, cin, kh, kw), generator=gen) * std
+
+
+def _affine_init(c, scale=1.0):
+    return {"scale": torch.full((c,), float(scale)), "bias": torch.zeros(c)}
+
+
+def init_bottleneck(gen, cin, mid, cout, projection,
+                    residual_scale=RESIDUAL_AFFINE_SCALE):
+    p = {
+        "conv1": {"W": _conv_init(gen, 1, 1, cin, mid)},
+        "bn1": _affine_init(mid),
+        "conv2": {"W": _conv_init(gen, 3, 3, mid, mid)},
+        "bn2": _affine_init(mid),
+        "conv3": {"W": _conv_init(gen, 1, 1, mid, cout)},
+        "bn3": _affine_init(cout, residual_scale),
+    }
+    if projection:
+        p["conv4"] = {"W": _conv_init(gen, 1, 1, cin, cout)}
+        p["bn4"] = _affine_init(cout, residual_scale)
+    return p
+
+
+def init_building_block(gen, stage, n_blocks):
+    cin, mid, cout = STAGE_CHANNELS[stage]
+    p = {"a": init_bottleneck(gen, cin, mid, cout, True)}
+    for i in range(1, n_blocks):
+        p["b%d" % i] = init_bottleneck(gen, cout, mid, cout, False)
+    return p
+
+
+def init_extractor(gen, n_layers=50):
+    blocks = RESNET_N_BLOCKS[n_layers]
+    params = {
+        "conv1": {"W": _conv_init(gen, 7, 7, 3, 64)},
+        "bn1": _affine_init(64, 0.5),
+    }
+    for i, stage in enumerate(["res2", "res3", "res4"]):
+        params[stage] = init_building_block(gen, stage, blocks[i])
+    return params
+
+
+def init_res5(gen, n_layers=50):
+    return init_building_block(gen, "res5", RESNET_N_BLOCKS[n_layers][3])

@@ -1,0 +1,205 @@
+"""Exact greedy NMS over padded, batched boxes, the port of
+``mask_rcnn_tpu/ops/nms.py``.
+
+Greedy NMS keeps box j (in descending-score order) iff it is valid and no
+kept box i < j has ``IoU(i, j) > thresh``. Two paths, each a wrapper over a
+plain torch version (CPU tensors) and a hand-written kernel (CUDA tensors,
+``csrc/nms.cu``):
+
+* :func:`nms_small` (K3) for N <= :data:`SMALL_MAX_N` boxes per problem:
+  the fixpoint formulation of ``nms_fixpoint_mask`` plus compaction;
+* :func:`nms_blocked` (K2) for larger N: the blocked formulation of
+  ``nms_blocked_mask``, which stops at ``max_out`` survivors.
+
+Both return the first ``max_out`` survivors of the exact greedy answer, so
+the choice between them changes no result.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from mask_rcnn_tpu_torch.ops import _kernels
+
+# K3 keeps a problem's boxes and its N x N bitmask in shared memory
+# (csrc/nms.cu::kSmallMaxN).
+SMALL_MAX_N = 1024
+_PLAIN_BLOCK = 1024
+
+
+def _pair_suppression(a, b, thresh):
+    """(..., I, J) bool ``IoU(a_i, b_j) > thresh``, division-free:
+    ``inter > t * (area_a + area_b - inter)``
+    (mask_rcnn_tpu/ops/nms.py:27-45)."""
+    ay1, ax1, ay2, ax2 = (a[..., k, None] for k in range(4))
+    by1, bx1, by2, bx2 = (b[..., None, :, k] for k in range(4))
+    ih = torch.clamp(torch.minimum(ay2, by2) - torch.maximum(ay1, by1),
+                     min=0.0)
+    iw = torch.clamp(torch.minimum(ax2, bx2) - torch.maximum(ax1, bx1),
+                     min=0.0)
+    inter = ih * iw
+    area_a = torch.clamp(ay2 - ay1, min=0.0) * torch.clamp(ax2 - ax1, min=0.0)
+    area_b = torch.clamp(by2 - by1, min=0.0) * torch.clamp(bx2 - bx1, min=0.0)
+    return inter > thresh * (area_a + area_b - inter)
+
+
+def nms_fixpoint_mask(boxes, valid, thresh):
+    """(B, N) keep mask of exact greedy NMS on sorted boxes (B, N, 4), as
+    the fixpoint of ``k[j] = valid[j] and not any_i(k[i] and S[i, j])``."""
+    n = boxes.shape[-2]
+    upper = torch.ones((n, n), dtype=torch.bool, device=boxes.device).triu(1)
+    sup = (_pair_suppression(boxes, boxes, thresh) & upper
+           & valid[..., :, None] & valid[..., None, :])
+    kept = valid
+    for _ in range(n):
+        new = valid & ~(sup & kept[..., :, None]).any(dim=-2)
+        if torch.equal(new, kept):
+            break
+        kept = new
+    return kept
+
+
+def nms_small_plain(boxes, valid, thresh, max_out):
+    """Plain K3: fixpoint keep mask, then the first ``max_out`` kept
+    positions in score order, -1 padded, with their validity."""
+    kept = nms_fixpoint_mask(boxes, valid, thresh)
+    pos = torch.sort((~kept).to(torch.uint8), dim=-1, stable=True).indices
+    pos = pos[..., :max_out]
+    mask = torch.gather(kept, -1, pos)
+    idx = torch.where(mask, pos, -1).to(torch.int32)
+    short = max_out - idx.shape[-1]
+    if short > 0:  # fewer inputs than requested outputs
+        idx = torch.nn.functional.pad(idx, (0, short), value=-1)
+        mask = torch.nn.functional.pad(mask, (0, short), value=False)
+    return idx, mask
+
+
+def nms_blocked_plain(boxes, valid, thresh, max_out, block=_PLAIN_BLOCK):
+    """Plain K2, per problem: score-order blocks are tested against the
+    compact kept set, resolved inside by the fixpoint, until ``max_out``
+    survivors exist (mask_rcnn_tpu/ops/nms.py:113-174)."""
+    b, n = valid.shape
+    idx = torch.full((b, max_out), -1, dtype=torch.int32,
+                     device=boxes.device)
+    for i in range(b):
+        kept_boxes = boxes.new_zeros((0, 4))
+        kept_pos = []
+        for start in range(0, n, block):
+            if len(kept_pos) >= max_out:
+                break
+            blk = boxes[i, start:start + block]
+            bval = valid[i, start:start + block]
+            if len(kept_pos):
+                bval = bval & ~_pair_suppression(kept_boxes, blk,
+                                                 thresh).any(dim=0)
+            keep = nms_fixpoint_mask(blk[None], bval[None], thresh)[0]
+            new = torch.nonzero(keep).flatten()[: max_out - len(kept_pos)]
+            kept_boxes = torch.cat([kept_boxes, blk[new]])
+            kept_pos.extend((new + start).tolist())
+        idx[i, : len(kept_pos)] = torch.tensor(kept_pos, dtype=torch.int32)
+    return idx, idx >= 0
+
+
+def _checked_outputs(boxes, valid, max_out):
+    """Raise on what the NMS kernels do not take; allocate their outputs."""
+    if boxes.device.type != "cuda":
+        raise ValueError(f"unsupported device {boxes.device}")
+    if (boxes.dim() != 3 or boxes.shape[-1] != 4
+            or boxes.dtype != torch.float32 or not boxes.is_contiguous()
+            or boxes.data_ptr() % 16):
+        raise ValueError("boxes must be a contiguous, 16-byte aligned "
+                         "float32 (B, N, 4) tensor")
+    if (valid.shape != boxes.shape[:2] or valid.dtype != torch.bool
+            or not valid.is_contiguous() or valid.device != boxes.device):
+        raise ValueError("valid must be a contiguous bool (B, N) tensor on "
+                         "the boxes' device")
+    if max_out < 0:
+        raise ValueError("max_out must be >= 0")
+    b = boxes.shape[0]
+    idx = torch.empty((b, max_out), dtype=torch.int32, device=boxes.device)
+    mask = torch.empty((b, max_out), dtype=torch.bool, device=boxes.device)
+    return idx, mask
+
+
+def nms_blocked(boxes, valid, thresh, max_out):
+    """K2 wrapper: boxes (B, N, 4) sorted by descending score, valid (B, N)
+    -> positions (B, max_out) int32 into the sorted order, -1 padded, and
+    their validity (B, max_out) bool."""
+    if boxes.device.type == "cpu":
+        return nms_blocked_plain(boxes, valid, thresh, max_out)
+    idx, mask = _checked_outputs(boxes, valid, max_out)
+    b, n = valid.shape
+    scratch = torch.empty((b, n, -(-n // 64)), dtype=torch.int64,
+                          device=boxes.device)
+    err = _kernels.lib().mrcnn_nms_blocked(
+        boxes.data_ptr(), valid.data_ptr(), scratch.data_ptr(), b, n,
+        float(thresh), max_out, idx.data_ptr(), mask.data_ptr(),
+        _kernels.stream_ptr(boxes.device),
+    )
+    _kernels.check(err, "mrcnn_nms_blocked")
+    nms_blocked.launches += 1
+    return idx, mask
+
+
+nms_blocked.launches = 0
+
+
+def nms_small(boxes, valid, thresh, max_out):
+    """K3 wrapper: as :func:`nms_blocked`, for N <= :data:`SMALL_MAX_N`."""
+    if boxes.device.type == "cpu":
+        return nms_small_plain(boxes, valid, thresh, max_out)
+    idx, mask = _checked_outputs(boxes, valid, max_out)
+    b, n = valid.shape
+    if n > SMALL_MAX_N:
+        raise ValueError(f"nms_small takes N <= {SMALL_MAX_N}, got {n}")
+    err = _kernels.lib().mrcnn_nms_small(
+        boxes.data_ptr(), valid.data_ptr(), b, n, float(thresh), max_out,
+        idx.data_ptr(), mask.data_ptr(), _kernels.stream_ptr(boxes.device),
+    )
+    _kernels.check(err, "mrcnn_nms_small")
+    nms_small.launches += 1
+    return idx, mask
+
+
+nms_small.launches = 0
+
+
+def nms_padded(bbox, score, thresh, max_out, valid=None, presorted=False):
+    """Greedy NMS over padded, batched boxes.
+
+    Args:
+        bbox: (B, N, 4) boxes (y1, x1, y2, x2).
+        score: (B, N) scores.
+        thresh: suppress j when IoU(i, j) > thresh.
+        max_out: number of survivors to return (padded).
+        valid: optional (B, N) bool mask of real rows.
+        presorted: rows are already in descending-score order (straight out
+            of a descending sort) -- skips the sort.
+
+    Returns:
+        indices: (B, max_out) int32 indices into the input, score-ordered,
+            -1 padded.
+        mask: (B, max_out) bool validity of each returned slot.
+    """
+    b, n = score.shape
+    if valid is None:
+        valid = torch.ones((b, n), dtype=torch.bool, device=score.device)
+    if presorted:
+        bbox_sorted, valid_sorted = bbox, valid
+    else:
+        # stable: ties keep input order, like jnp.argsort(descending=True)
+        order = torch.sort(
+            torch.where(valid, score, -torch.inf), dim=-1, descending=True,
+            stable=True,
+        ).indices
+        bbox_sorted = torch.gather(bbox, 1, order[..., None].expand(-1, -1, 4))
+        valid_sorted = torch.gather(valid, 1, order)
+    bbox_sorted = bbox_sorted.to(torch.float32).contiguous()
+    valid_sorted = valid_sorted.contiguous()
+    run = nms_small if n <= SMALL_MAX_N else nms_blocked
+    pos, mask = run(bbox_sorted, valid_sorted, thresh, max_out)
+    if not presorted:
+        pos = torch.where(
+            mask, torch.gather(order, 1, pos.clamp(min=0).long()), -1
+        ).to(torch.int32)
+    return pos, mask

@@ -8,8 +8,15 @@ setup(
         "instance segmentation with on-device proposals, einsum RoIAlign, "
         "and mesh data parallelism"
     ),
-    packages=find_packages(include=["mask_rcnn_tpu", "mask_rcnn_tpu.*"]),
-    package_data={"mask_rcnn_tpu.data": ["sbd_splits/*.txt"]},
+    packages=find_packages(
+        include=["mask_rcnn_tpu", "mask_rcnn_tpu.*",
+                 "mask_rcnn_tpu_torch", "mask_rcnn_tpu_torch.*"]
+    ),
+    package_data={
+        "mask_rcnn_tpu.data": ["sbd_splits/*.txt"],
+        # CUDA sources, compiled with nvcc at first use on a GPU
+        "mask_rcnn_tpu_torch": ["csrc/*.cu"],
+    },
     include_package_data=True,
     python_requires=">=3.10",
     install_requires=[
