@@ -4,22 +4,36 @@ GPU.
 
     python3 chip_smoke.py
 
-1. builds the hand-written CUDA kernels from ``mask_rcnn_tpu_torch/csrc``;
+1. builds the hand-written CUDA kernels from ``mask_rcnn_tpu_torch/csrc``
+   (one nvcc per source, in parallel);
 2. holds each kernel against its plain torch version on the card at the
-   main path's shapes (RoIAlign K1 on (1, 52, 84, 1024) bf16 features with
-   1000 and 100 rois; proposal NMS K2 6000 -> 1000 at 0.7; decode NMS K3
-   80 x 256 -> 100 at 0.5) and times both with CUDA events;
-3. checks the whole predict step on the GPU against the plain path on the
-   CPU at a small float32 input;
-4. drives ``MaskRCNNResNet.predict`` at R-50-C4, COCO (80 classes), anchor
-   scales (2, 4, 8, 16, 32), min 800 / max 1333 (buckets 832x1344 and
-   1344x832), bf16, seeded random weights: three single images, a batch of
-   two, and a request at ``score_thresh=0``; checks the outputs and that
-   every kernel was launched during that run.
+   main paths' shapes and times both with CUDA events: RoIAlign K1 on
+   (1, 52, 84, 1024) bf16 features with 1000 and 100 rois; proposal NMS K2
+   6000 -> 1000 at 0.7 and, at the train counts, (2, 12000) -> 2000;
+   decode NMS K3 80 x 256 -> 100 at 0.5; RoIAlign
+   backward K7 from (2, 512, 7, 7, 1024) bf16 to (2, 52, 84, 1024); the
+   mask-target crop-resize K8 of (2, 8, 832, 168) packed masks to
+   (2, 128, 14, 14); anchor matching K9 of 65520 anchors and proposal
+   matching of (2, 2008) candidates to 8 gts per image;
+3. checks the whole predict step, and the whole train step (losses and
+   gradients, with the same sampling priorities), on the GPU against the
+   plain path on the CPU at small float32 inputs;
+4. serving path: drives ``MaskRCNNResNet.predict`` at R-50-C4, COCO (80
+   classes), anchor scales (2, 4, 8, 16, 32), min 800 / max 1333 (buckets
+   832x1344 and 1344x832), bf16, seeded random weights: three single
+   images, a batch of two, and a request at ``score_thresh=0``; checks the
+   outputs and that K1, K2 and K3 were launched during that run;
+5. training path: ``make_train_step`` at the same configuration, bf16
+   compute with float32 master params, on a synthetic batch of 2 at the
+   832x1344 bucket with 8 gts per image and bit-packed masks: 3 warm-up and
+   10 timed steps; checks that every loss is finite, that the frozen params
+   did not change and every trainable one did, and that K1, K2, K7, K8 and
+   K9 were launched during that run; then profiles two more steps.
 
-Prints the card's name and power limit, one JSON line of kernel results,
-and as its last line ``{"ok": true, "device": {...}}``. Exits non-zero, and
-prints no result, when a phase fails or no CUDA device is present.
+Prints the card's name and power limit, the train step's ms/step and
+img/s, one JSON line of kernel results, and as its last line
+``{"ok": true, "device": {...}}``. Exits non-zero, and prints no result,
+when a phase fails or no CUDA device is present.
 """
 
 import json
@@ -255,6 +269,352 @@ def drive_main_path(torch, kernels):
     return counts, ms_img, step_ms
 
 
+TRAIN_HW = (832, 1344)
+
+
+def train_batch(torch, n, h, w, device, **kw):
+    from mask_rcnn_tpu_torch.data.synthetic import make_synthetic_train_batch
+
+    batch = make_synthetic_train_batch(n, h, w, np.random.RandomState(SEED),
+                                       **kw)
+    return {k: torch.from_numpy(v).to(device) for k, v in batch.items()}
+
+
+def check_train_kernels(torch, results):
+    """Phase 2, training side: K7, K8, K9 against their plain versions at
+    the train step's shapes."""
+    from mask_rcnn_tpu_torch.models.mask_rcnn import (
+        MaskRCNNConfig,
+        make_anchors,
+    )
+    from mask_rcnn_tpu_torch.ops import nms, roi_align, targets
+
+    dev = torch.device("cuda")
+    rng = np.random.RandomState(SEED + 1)
+    n, (h, w) = 2, TRAIN_HW
+    batch = train_batch(torch, n, h, w, dev)
+
+    # K7: the head's grad (2 images x 512 sampled rois, 7x7 bins at
+    # bin_stride 2) into the (2, 52, 84, 1024) bf16 C4 features.
+    rois = torch.from_numpy(np.stack(
+        [proposal_like_boxes(rng, 512, h, w) for _ in range(n)])).to(dev)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    g = torch.randn((n, 512, 7, 7, 1024), generator=gen, device=dev)
+    g = g.bfloat16()
+    args = ((h // 16, w // 16), 1 / 16, 0, 2)
+    got = roi_align.roi_align_grouped_backward(g, rois, *args)
+    want = roi_align.roi_align_grouped_backward_plain(g.float(), rois, *args)
+    torch.cuda.synchronize()
+    # tolerance: one bf16 rounding of the float32 sum (2^-8 relative), and
+    # the float32 atomics' summation order (1e-5 of the largest value)
+    rtol, atol = 2.0 ** -8, 1e-5 * want.abs().max().item()
+    err = (got.float() - want).abs()
+    bad = (err > atol + rtol * want.abs()).sum().item()
+    ms = cuda_ms(torch, lambda: roi_align.roi_align_grouped_backward(
+        g, rois, *args))
+    plain_ms = cuda_ms(torch, lambda: roi_align.roi_align_grouped_backward_plain(
+        g.float(), rois, *args), warmup=1, iters=3)
+    print(f"K7 roi_align backward {tuple(g.shape)} -> {tuple(got.shape)}: "
+          f"max|err| {err.max().item():.3e} (rtol {rtol:g}, atol "
+          f"{atol:.3e}, {bad} outside), contiguous NHWC "
+          f"{got.is_contiguous()}, kernel {ms:.4f} ms, plain f32 "
+          f"{plain_ms:.4f} ms")
+    if bad or not got.is_contiguous():
+        raise AssertionError(f"K7 disagrees with its plain version at {bad} "
+                             "values")
+    results["roi_align_grouped_backward"] = {
+        "name": "roi_align_grouped_backward", "route": "cuda",
+        "source": "mask_rcnn_tpu_torch/csrc/roi_align.cu",
+        "replaces": "mask_rcnn_tpu/ops/roi_align.py:282",
+        "max_abs_err": err.max().item(), "ms": ms, "plain_ms": plain_ms}
+
+    # K2 at the train counts: (2, 12000) score-sorted proposals -> 2000 at
+    # 0.7, a (2, 12000, 188) int64 scratch; a tail of invalid rows.
+    n_pre, n_post = 12000, 2000
+    boxes = torch.from_numpy(np.stack(
+        [proposal_like_boxes(rng, n_pre, h, w) for _ in range(n)])).to(dev)
+    valid = torch.from_numpy(
+        (rng.rand(n, n_pre) > 0.02) & (np.arange(n_pre) < n_pre - 100)
+    ).to(dev)
+    fn = lambda: nms.nms_blocked(boxes, valid, 0.7, n_post)  # noqa: E731
+    plain = lambda: nms.nms_blocked_plain(boxes, valid, 0.7, n_post)  # noqa
+    (idx, mask), (want_idx, want_mask) = fn(), plain()
+    torch.cuda.synchronize()
+    n_diff = ((idx != want_idx).sum() + (mask != want_mask).sum()).item()
+    ms = cuda_ms(torch, fn)
+    plain_ms = cuda_ms(torch, plain, warmup=1, iters=3)
+    print(f"K2 nms_blocked at train counts {tuple(boxes.shape)} -> {n_post}: "
+          f"identical={n_diff == 0} (kept {mask.sum(1).tolist()}), scratch "
+          f"({n}, {n_pre}, {-(-n_pre // 64)}) int64, kernel {ms:.4f} ms, "
+          f"plain {plain_ms:.4f} ms")
+    if n_diff:
+        raise AssertionError(f"K2 differs from its plain version at train "
+                             f"counts at {n_diff} positions")
+    k2 = results["nms_blocked"]
+    k2["max_abs_err"] += float(n_diff)
+    k2["train_ms"], k2["train_plain_ms"] = ms, plain_ms
+
+    # K8: 128 positive slots per image, rois jittered around their gts.
+    q = 128
+    gt_index = torch.from_numpy(rng.randint(0, 8, (n, q))).to(dev)
+    bbox = batch["bbox"].gather(1, gt_index[..., None].expand(n, q, 4))
+    jitter = torch.from_numpy(rng.randn(n, q, 4).astype(np.float32) * 8)
+    hi = torch.tensor([h, w, h, w], dtype=torch.float32, device=dev)
+    crop_rois = torch.minimum((bbox + jitter.to(dev)).clamp(min=0), hi)
+    fn = lambda: targets.mask_crop_resize(batch["mask"], gt_index,  # noqa
+                                          crop_rois, 14, True)
+    plain = lambda: targets.mask_crop_resize_plain(  # noqa
+        batch["mask"], gt_index, crop_rois, 14, True)
+    got, want = fn(), plain()
+    torch.cuda.synchronize()
+    n_diff = (got != want).sum().item()
+    ms, plain_ms = cuda_ms(torch, fn), cuda_ms(torch, plain)
+    print(f"K8 mask crop-resize {tuple(batch['mask'].shape)} packed -> "
+          f"{tuple(got.shape)}: identical={n_diff == 0} (ones "
+          f"{int(got.sum())}), kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
+    if n_diff:
+        raise AssertionError(f"K8 differs from its plain version at {n_diff} "
+                             "cells")
+    results["mask_crop_resize"] = {
+        "name": "mask_crop_resize", "route": "cuda",
+        "source": "mask_rcnn_tpu_torch/csrc/targets.cu",
+        "replaces": "mask_rcnn_tpu/models/targets.py:190",
+        "max_abs_err": float(n_diff), "ms": ms, "plain_ms": plain_ms}
+
+    # K9: 65520 anchors of the 52x84 grid, and 2000 proposals + 8 gts.
+    cfg = MaskRCNNConfig(n_fg_class=N_CLASS_FG,
+                         anchor_scales=(2, 4, 8, 16, 32))
+    anchors = torch.from_numpy(make_anchors(cfg, h // 16, w // 16)).to(dev)
+    cand = torch.cat([torch.from_numpy(np.stack(
+        [proposal_like_boxes(rng, 2000, h, w) for _ in range(n)])).to(dev),
+        batch["bbox"]], dim=1)
+    cvalid = torch.from_numpy(rng.rand(n, 2008) > 0.02).to(dev)
+    k9 = {"name": "anchor_match+proposal_match", "route": "cuda",
+          "source": "mask_rcnn_tpu_torch/csrc/targets.cu",
+          "replaces": "mask_rcnn_tpu/models/targets.py:54",
+          "max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0}
+    for name, fn, plain in (
+        ("anchor_match",
+         lambda: targets.anchor_match(anchors, batch["bbox"],
+                                      batch["bbox_valid"], (h, w), 0.7, 0.3),
+         lambda: targets.anchor_match_plain(anchors, batch["bbox"],
+                                            batch["bbox_valid"], (h, w),
+                                            0.7, 0.3)),
+        ("proposal_match",
+         lambda: targets.proposal_match(cand, cvalid, batch["bbox"],
+                                        batch["bbox_valid"], 0.5, 0.5, 0.0),
+         lambda: targets.proposal_match_plain(cand, cvalid, batch["bbox"],
+                                              batch["bbox_valid"], 0.5, 0.5,
+                                              0.0)),
+    ):
+        got, want = fn(), plain()
+        torch.cuda.synchronize()
+        n_diff = sum((a != b).sum().item() for a, b in zip(got, want))
+        ms, plain_ms = cuda_ms(torch, fn), cuda_ms(torch, plain)
+        print(f"K9 {name} {tuple(got[0].shape)} x 8 gts: identical="
+              f"{n_diff == 0}, kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
+        if n_diff:
+            raise AssertionError(f"K9 {name} differs from its plain version "
+                                 f"at {n_diff} values")
+        k9["max_abs_err"] += float(n_diff)
+        k9["ms"] += ms
+        k9["plain_ms"] += plain_ms
+    results["anchor_match"] = k9
+
+
+def check_train_reference(torch):
+    """Phase 3, training side: the train loss and every gradient on the GPU
+    (kernels) against the plain path on the CPU, float32, small input, the
+    same sampling priorities."""
+    from mask_rcnn_tpu_torch.models import mask_rcnn, rpn
+    from mask_rcnn_tpu_torch.models.mask_rcnn import map_params
+    from mask_rcnn_tpu_torch.models.targets import (
+        AnchorTargetConfig,
+        ProposalTargetConfig,
+    )
+    from mask_rcnn_tpu_torch.models.train_model import train_loss
+    from mask_rcnn_tpu_torch.utils.checkpoint import flatten_params
+
+    cfg = mask_rcnn.MaskRCNNConfig(
+        n_fg_class=3, min_size=64, max_size=96, anchor_scales=(1.0, 2.0, 4.0),
+        proposal=rpn.ProposalConfig(n_train_pre_nms=600,
+                                    n_train_post_nms=120),
+    )
+    n, h, w, g = 2, 256, 320, 4
+    kw = dict(anchor_cfg=AnchorTargetConfig(n_sample=64),
+              proposal_cfg=ProposalTargetConfig(n_sample=32))
+    gen = torch.Generator().manual_seed(SEED)
+    params = mask_rcnn.init_params(cfg, gen)
+    n_anchor = (h // 16) * (w // 16) * cfg.n_anchor
+    pri = {"proposal": tuple(torch.rand((n, 120 + g), generator=gen)
+                             for _ in range(2)),
+           "anchor": tuple(torch.rand((n, n_anchor), generator=gen)
+                           for _ in range(2))}
+    out = []
+    for dev in (torch.device("cpu"), torch.device("cuda")):
+        p = map_params(lambda t: t.detach().to(dev).requires_grad_(True),
+                       params)
+        batch = train_batch(torch, n, h, w, dev, max_boxes=g, n_fg_class=3)
+        pr = {k: tuple(t.to(dev) for t in v) for k, v in pri.items()}
+        loss, metrics = train_loss(p, cfg, batch, pr, **kw)
+        flat = flatten_params(p)
+        names = sorted(flat)
+        grads = torch.autograd.grad(loss, [flat[k] for k in names],
+                                    allow_unused=True)
+        out.append(({k: v.item() for k, v in metrics.items()},
+                    {k: gr.cpu() for k, gr in zip(names, grads)
+                     if gr is not None}))
+    (want_m, want_g), (got_m, got_g) = out
+    for k, v in want_m.items():
+        rel = abs(got_m[k] - v) / max(abs(v), 1e-12)
+        print(f"small f32 train reference (GPU vs CPU plain): {k} "
+              f"{got_m[k]:.7g} vs {v:.7g}, rel err {rel:.2e} (rtol 1e-4)")
+        assert rel <= 1e-4, f"{k} differs from the CPU reference"
+    assert want_m["roi_mask_loss"] > 0, "no positive roi in the reference"
+    assert set(got_g) == set(want_g), "the GPU path grads other leaves"
+    worst = max(((got_g[k] - v).abs().max() / v.abs().max()).item()
+                for k, v in want_g.items())
+    # cuDNN's float32 algorithms sum in another order: 2e-3 of each leaf's
+    # largest gradient (readings on an H100: 2.3e-4)
+    print(f"small f32 train reference: grads of {len(want_g)} leaves, worst "
+          f"max|err| / max|grad| {worst:.3e} (tolerance 2e-3)")
+    assert worst <= 2e-3, "gradients differ from the CPU reference"
+
+
+def drive_train_path(torch, kernels):
+    """Phase 5: the port's training path at full width; returns the launch
+    counts of the run and the step's timings."""
+    from mask_rcnn_tpu_torch import (
+        create_train_state,
+        make_optimizer,
+        make_train_step,
+    )
+    from mask_rcnn_tpu_torch.models.mask_rcnn import (
+        MaskRCNNConfig,
+        init_params,
+    )
+    from mask_rcnn_tpu_torch.utils.checkpoint import flatten_params
+
+    dev = torch.device("cuda")
+    t0 = time.perf_counter()
+    cfg = MaskRCNNConfig(n_fg_class=N_CLASS_FG, min_size=800, max_size=1333,
+                         anchor_scales=(2, 4, 8, 16, 32),
+                         compute_dtype="bfloat16")
+    params = init_params(cfg, torch.Generator().manual_seed(SEED), dev)
+    opt, _ = make_optimizer(params, 0.02, 1000)
+    state = create_train_state(params, opt)
+    n, (h, w) = 2, TRAIN_HW
+    batch = train_batch(torch, n, h, w, dev)
+    step = make_train_step(cfg, opt)
+    flat = flatten_params(params)
+    before = {k: v.detach().clone() for k, v in flat.items()}
+    print(f"train state built in {time.perf_counter() - t0:.2f} s: "
+          f"{len(opt.trainable)} trainable and "
+          f"{len(flat) - len(opt.trainable)} frozen leaves, "
+          f"{sum(v.numel() for v in flat.values())} params")
+
+    for wrapper in kernels:
+        wrapper.launches = 0
+    history = []
+    for _ in range(3):
+        state, metrics = step(state, batch, SEED)
+        history.append(metrics)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reps = 10
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    start.record()
+    for _ in range(reps):
+        state, metrics = step(state, batch, SEED)
+        history.append(metrics)
+    end.record()
+    end.synchronize()
+    host_ms = (time.perf_counter() - t0) * 1e3 / reps
+    ms = start.elapsed_time(end) / reps
+    counts = {w.__name__: w.launches for w in kernels}
+    peak_gb = torch.cuda.max_memory_allocated() / 2**30
+
+    assert state.step == 13, state.step
+    losses = torch.stack([torch.stack(list(m.values())) for m in history])
+    assert torch.isfinite(losses).all(), "a train loss is not finite"
+    print("train losses (step: rpn_loc rpn_cls roi_loc roi_cls roi_mask "
+          "total):")
+    for i, row in enumerate(losses.tolist()):
+        print(f"  {i + 1:2d}: " + " ".join(f"{v:.5f}" for v in row))
+    frozen = [k for k in flat if k not in opt.trainable]
+    changed = [k for k in frozen if not torch.equal(flat[k], before[k])]
+    still = [k for k in opt.trainable if torch.equal(flat[k], before[k])]
+    assert not changed, f"frozen params changed: {changed[:5]}"
+    assert not still, f"trainable params did not move: {still[:5]}"
+    print(f"{len(frozen)} frozen leaves bit-unchanged, all "
+          f"{len(opt.trainable)} trainable leaves moved after 13 steps")
+    print(f"kernel launches during the train path: {counts}")
+    for name in ("roi_align_grouped", "nms_blocked",
+                 "roi_align_grouped_backward", "mask_crop_resize",
+                 "anchor_match", "proposal_match"):
+        if counts[name] <= 0:
+            raise AssertionError(f"kernel {name} was not launched")
+    print(f"train step, b{n} {h}x{w} bf16 (float32 masters), R-50-C4 COCO: "
+          f"{ms:.3f} ms/step (CUDA events over {reps} steps after 3 warm-up), "
+          f"{n * 1e3 / ms:.3f} img/s; host clock {host_ms:.3f} ms/step; "
+          f"peak allocated {peak_gb:.2f} GiB")
+    profile_train(torch, step, state, batch)
+    return counts, ms, host_ms, peak_gb
+
+
+def kernel_group(name):
+    """Coarse family of a CUDA kernel's name, for the profile's table."""
+    low = name.lower()
+    for group, keys in (
+        ("K1 roi_align fwd", ("roi_align_fwd",)),
+        ("K7 roi_align bwd", ("roi_align_bwd",)),
+        ("K2 nms", ("nms_mask", "nms_scan")),
+        ("K8/K9 targets", ("anchor_", "proposal_match", "mask_crop")),
+        ("conv/matmul (cuDNN, cuBLAS)", ("conv", "gemm", "xmma", "cutlass",
+                                         "sm90", "wgrad", "dgrad", "nchw",
+                                         "nhwc", "nvjet")),
+        ("optimizer (foreach)", ("multi_tensor", "foreach")),
+        ("sort/top-k", ("sort", "radix", "topk")),
+        ("reduce", ("reduce",)),
+        ("copy/cast", ("copy", "memcpy", "memset", "cat")),
+        ("elementwise", ("elementwise", "vectorized")),
+    ):
+        if any(k in low for k in keys):
+            return group
+    return "other"
+
+
+def profile_train(torch, step, state, batch):
+    """Device time of two train steps by kernel family (profiler)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 acc_events=True) as prof:
+        for _ in range(2):
+            state, _ = step(state, batch, SEED)
+        torch.cuda.synchronize()
+    groups, names = {}, []
+    for ev in prof.key_averages():
+        if ev.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        ms = ev.self_device_time_total / 1e3 / 2
+        names.append((ms, ev.count // 2, ev.key))
+        g = groups.setdefault(kernel_group(ev.key), [0.0, 0])
+        g[0] += ms
+        g[1] += ev.count // 2
+    total = sum(v[0] for v in groups.values())
+    print(f"profile of 2 train steps, device time per step by kernel "
+          f"family (ms, launches): total {total:.3f}")
+    for name, (ms, cnt) in sorted(groups.items(), key=lambda kv: -kv[1][0]):
+        print(f"  {name:30s} {ms:9.3f} {cnt:6d}")
+    print("top kernels (ms per step, launches, name):")
+    for ms, cnt, name in sorted(names, reverse=True)[:12]:
+        print(f"  {ms:8.3f} {cnt:5d}  {name[:110]}")
+
+
 def check_outputs(imgs, bboxes, masks, labels, scores):
     assert len(bboxes) == len(imgs)
     for img, b, m, lab, s in zip(imgs, bboxes, masks, labels, scores):
@@ -279,7 +639,7 @@ def main() -> int:
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
     from mask_rcnn_tpu_torch.models.mask_rcnn import set_float32_precision
-    from mask_rcnn_tpu_torch.ops import _kernels, nms, roi_align
+    from mask_rcnn_tpu_torch.ops import _kernels, nms, roi_align, targets
 
     smi = nvidia_smi()
     print(smi)
@@ -298,15 +658,36 @@ def main() -> int:
 
     results = {}
     check_kernels(torch, results)
+    check_train_kernels(torch, results)
     check_small_reference(torch)
+    check_train_reference(torch)
     kernels = (roi_align.roi_align_grouped, nms.nms_blocked, nms.nms_small)
     counts, ms_img, step_ms = drive_main_path(torch, kernels)
-
     for name, c in counts.items():
         results[name]["launches"] = c
+
+    train_kernels = (roi_align.roi_align_grouped, nms.nms_blocked,
+                     roi_align.roi_align_grouped_backward,
+                     targets.mask_crop_resize, targets.anchor_match,
+                     targets.proposal_match)
+    train_counts, train_ms, train_host_ms, peak_gb = drive_train_path(
+        torch, train_kernels)
+    results["roi_align_grouped_backward"]["launches"] = train_counts[
+        "roi_align_grouped_backward"]
+    results["mask_crop_resize"]["launches"] = train_counts["mask_crop_resize"]
+    results["anchor_match"]["launches"] = (train_counts["anchor_match"]
+                                           + train_counts["proposal_match"])
+
     print(json.dumps({"predict_ms_per_img_b1": ms_img,
-                      "predict_submit_ms_per_img_b1": step_ms, "card": smi}))
-    print(json.dumps({"kernels": [results[w.__name__] for w in kernels]}))
+                      "predict_submit_ms_per_img_b1": step_ms,
+                      "train_ms_per_step_b2": train_ms,
+                      "train_img_per_s_b2": 2e3 / train_ms,
+                      "train_host_ms_per_step_b2": train_host_ms,
+                      "train_peak_gib": peak_gb,
+                      "train_launches": train_counts, "card": smi}))
+    order = ("roi_align_grouped", "nms_blocked", "nms_small",
+             "roi_align_grouped_backward", "mask_crop_resize", "anchor_match")
+    print(json.dumps({"kernels": [results[k] for k in order]}))
     print(nvidia_smi())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

@@ -1,1 +1,2 @@
-"""Data helpers: static bucket shapes."""
+"""Data helpers: static bucket shapes, mask bit-packing, synthetic train
+batches."""

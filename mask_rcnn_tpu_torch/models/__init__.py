@@ -1,1 +1,2 @@
-"""Models: ResNet-C4 backbone, RPN, RoI head, predict step, API."""
+"""Models: ResNet-C4 backbone, RPN, RoI head, predict step, API, target
+creators and the train loss."""

@@ -28,7 +28,7 @@ def deconv2x2_s2(x, w, b):
 
 def head_forward(params, features, rois, roi_size=14,
                  spatial_scale=1.0 / 16, pred_bbox=True, pred_mask=True,
-                 sampling_ratio=0):
+                 sampling_ratio=0, mask_subset=None):
     """Run the RoI head on rois grouped per image.
 
     Args:
@@ -41,8 +41,11 @@ def head_forward(params, features, rois, roi_size=14,
     values for 1/s^2 of the pooling work
     (mask_rcnn_tpu/models/heads.py:67-86).
 
+    ``mask_subset``: optional (M,) flat row indices of the rois to run the
+    mask branch on (training: only positive samples carry mask targets).
+
     Returns dict with any of cls_locs (N*R, n_class*4), scores
-    (N*R, n_class), masks (N*R, 14, 14, n_fg_class) logits.
+    (N*R, n_class), masks (N*R or M, 14, 14, n_fg_class) logits.
     """
     s5 = roi_size // 7
     size, bin_stride = (7, s5) if s5 > 1 else (roi_size, 1)
@@ -58,18 +61,31 @@ def head_forward(params, features, rois, roi_size=14,
         out["cls_locs"] = p5 @ params["cls_loc"]["W"] + params["cls_loc"]["b"]
         out["scores"] = p5 @ params["score"]["W"] + params["score"]["b"]
     if pred_mask:
+        hm = h if mask_subset is None else h.index_select(0, mask_subset)
         d = torch.relu(
-            deconv2x2_s2(h, params["deconv6"]["W"], params["deconv6"]["b"])
+            deconv2x2_s2(hm, params["deconv6"]["W"], params["deconv6"]["b"])
         )
         out["masks"] = conv2d(d, params["mask"]["W"]) + params["mask"]["b"]
     return out
 
 
-def init_head(gen, n_class, n_layers=50, loc_std=0.001, std=0.01):
-    """Reference initializers (mask_rcnn_tpu/models/heads.py:139-180,
-    ``initializer='normal'``): Normal(0.001) for cls_loc, Normal(0.01) for
-    score, deconv6 and mask."""
+def init_head(gen, n_class, n_layers=50, loc_std=0.001, std=0.01,
+              initializer="normal"):
+    """Reference initializers (mask_rcnn_tpu/models/heads.py:139-180):
+    Normal(0.001) for cls_loc, Normal(0.01) for score, and for the mask
+    branch (deconv6 + mask) the ``--initializer`` choice: 'normal' ->
+    Normal(0.01), 'he_normal' -> HeNormal(fan_out) in chainer's fan
+    convention (fan_out = W.shape[0] * prod(kernel) in chainer layout)."""
     n_fg = n_class - 1
+    if initializer == "he_normal":
+        # chainer layouts: deconv6 W (2048, 256, 2, 2), mask W (n_fg, 256,
+        # 1, 1) -> fans 2048*4 and n_fg*1.
+        deconv_std = (2.0 / (2048 * 2 * 2)) ** 0.5
+        mask_std = (2.0 / n_fg) ** 0.5
+    elif initializer == "normal":
+        deconv_std = mask_std = std
+    else:
+        raise ValueError(f"unsupported initializer: {initializer}")
     return {
         "res5": init_res5(gen, n_layers),
         "cls_loc": {
@@ -81,11 +97,11 @@ def init_head(gen, n_class, n_layers=50, loc_std=0.001, std=0.01):
             "b": torch.zeros(n_class),
         },
         "deconv6": {
-            "W": torch.randn((2048, 256, 2, 2), generator=gen) * std,
+            "W": torch.randn((2048, 256, 2, 2), generator=gen) * deconv_std,
             "b": torch.zeros(256),
         },
         "mask": {
-            "W": torch.randn((n_fg, 256, 1, 1), generator=gen) * std,
+            "W": torch.randn((n_fg, 256, 1, 1), generator=gen) * mask_std,
             "b": torch.zeros(n_fg),
         },
     }

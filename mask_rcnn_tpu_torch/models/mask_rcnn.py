@@ -1,5 +1,7 @@
-"""Mask R-CNN (R-50/101-C4) inference: config, parameter init and the
-predict step, the port of ``mask_rcnn_tpu/models/mask_rcnn.py``.
+"""Mask R-CNN (R-50/101-C4): config, parameter init, the backbone + RPN
+forward and the predict step, the port of
+``mask_rcnn_tpu/models/mask_rcnn.py`` (the train loss is in
+``train_model.py``).
 
 Everything from pixels to per-class-NMS'd detections and mask
 probabilities runs on the tensors' device with static shapes and no host
@@ -54,6 +56,9 @@ class MaskRCNNConfig:
     # Per-class candidate cap before decode NMS: exact unless more than K
     # boxes of one class clear score_thresh (0 disables it).
     nms_topk_per_class: int = 256
+    # Recompute the backbone stages' activations in the backward pass
+    # (less activation memory for ~1/3 more backbone FLOPs).
+    remat: bool = False
 
     def __post_init__(self):
         if self.pooling != "align":
@@ -71,15 +76,17 @@ class MaskRCNNConfig:
 
 
 def init_params(cfg: MaskRCNNConfig, generator: torch.Generator,
-                device="cpu"):
+                device="cpu", initializer="normal"):
     """Seeded parameters with the JAX package's distributions (he_normal
     convs, bn1 scale 0.5, residual affine scale 0.1, RPN std 0.01, cls_loc
     std 0.001), drawn on the CPU from ``generator`` and moved to
-    ``device``."""
+    ``device``. ``initializer`` selects the mask branch's init ('normal' or
+    'he_normal'), like the reference's ``--initializer`` flag."""
     params = {
         "extractor": resnet.init_extractor(generator, cfg.n_layers),
         "rpn": rpn.init_rpn(generator, 1024, cfg.rpn_hidden, cfg.n_anchor),
-        "head": heads.init_head(generator, cfg.n_class, cfg.n_layers),
+        "head": heads.init_head(generator, cfg.n_class, cfg.n_layers,
+                                initializer=initializer),
     }
     return map_params(lambda t: t.to(device), params)
 
@@ -131,11 +138,13 @@ def set_float32_precision():
     torch.backends.cuda.matmul.allow_tf32 = False
 
 
-def forward_backbone_rpn(params, cfg, images):
+def forward_backbone_rpn(params, cfg, images, train=False):
     """images (N, H, W, 3), mean-subtracted and padded -> (features,
-    rpn_locs, rpn_scores, anchors)."""
+    rpn_locs, rpn_scores, anchors). ``train`` freezes the stages up to res2
+    and rematerializes when ``cfg.remat``."""
     x = images.to(getattr(torch, cfg.compute_dtype))
-    feats = resnet.extractor_forward(params["extractor"], x, cfg.n_layers)
+    feats = resnet.extractor_forward(params["extractor"], x, cfg.n_layers,
+                                     train=train, remat=cfg.remat)
     locs, scores = rpn.rpn_forward(params["rpn"], feats)
     anchors = _anchors(cfg, feats.shape[1], feats.shape[2], feats.device)
     return feats, locs, scores, anchors

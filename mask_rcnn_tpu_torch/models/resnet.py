@@ -23,8 +23,11 @@ JAX package's HWIO).
 
 from __future__ import annotations
 
+import functools
+
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 RESNET_N_BLOCKS = {50: (3, 4, 6, 3), 101: (3, 4, 23, 3)}
 
@@ -92,12 +95,25 @@ def building_block(params, x, n_blocks, stride):
     return h
 
 
-def extractor_forward(params, x, n_layers=50):
-    """conv1 .. res4: (N, H, W, 3) -> (N, H/16, W/16, 1024) C4 features."""
+def extractor_forward(params, x, n_layers=50, freeze_at="res2",
+                      train=False, remat=False):
+    """conv1 .. res4: (N, H, W, 3) -> (N, H/16, W/16, 1024) C4 features.
+
+    With ``train``, ``freeze_at`` cuts the gradient after the named stage
+    (``.detach()``, the reference's ``unchain_backward``), so the frozen
+    stages get none, and ``remat`` recomputes each stage's activations in
+    the backward pass (``torch.utils.checkpoint``) instead of keeping them.
+    """
     blocks = RESNET_N_BLOCKS[n_layers]
     h = stem_forward(params, x)
     for i, stage in enumerate(["res2", "res3", "res4"]):
-        h = building_block(params[stage], h, blocks[i], STAGE_STRIDES[stage])
+        fn = functools.partial(building_block, params[stage],
+                               n_blocks=blocks[i],
+                               stride=STAGE_STRIDES[stage])
+        h = checkpoint(fn, h, use_reentrant=False) if remat and train \
+            else fn(h)
+        if train and freeze_at == stage:
+            h = h.detach()
     return h
 
 

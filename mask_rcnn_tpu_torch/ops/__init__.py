@@ -1,1 +1,2 @@
-"""Ops: boxes, anchors, NMS (kernels K2, K3) and RoIAlign (K1)."""
+"""Ops: boxes, anchors, losses, NMS (kernels K2, K3), RoIAlign (K1, K7)
+and the target creators' matching and mask crop-resize (K9, K8)."""

@@ -1,6 +1,7 @@
 """Build and load the hand-written CUDA kernels of ``csrc/``.
 
-The sources are compiled with ``nvcc`` for ``sm_90a`` into one shared
+Each source is compiled with ``nvcc`` for ``sm_90a`` into an object file,
+all of them at once in parallel, and the objects are linked into one shared
 library with a plain C interface, loaded with ``ctypes``. The build runs at
 the first call of :func:`lib` (never at import, so the package imports on a
 machine without ``nvcc``), into ``mask_rcnn_tpu_torch/_build/`` keyed by a
@@ -15,21 +16,30 @@ import os
 import shutil
 import subprocess
 import threading
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-SOURCES = ("roi_align.cu", "nms.cu")
+SOURCES = ("roi_align.cu", "nms.cu", "targets.cu")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas=-v",
 )
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
     "mrcnn_roi_align_fwd": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _I,
                             _I, _P),
+    "mrcnn_roi_align_bwd": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _I,
+                            _I, _P),
+    "mrcnn_anchor_match": (_P, _P, _P, _P, _I, _I, _I, _F, _F, _F, _F, _P, _P,
+                           _P),
+    "mrcnn_proposal_match": (_P, _P, _P, _P, _I, _I, _I, _F, _F, _F, _P, _P,
+                             _P, _P),
+    "mrcnn_mask_crop_resize": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P,
+                               _P),
     "mrcnn_nms_blocked": (_P, _P, _P, _I, _I, _F, _I, _P, _P, _P),
     "mrcnn_nms_small": (_P, _P, _I, _I, _F, _I, _P, _P, _P),
 }
@@ -49,6 +59,16 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
 
 
+def _run(cmd) -> str:
+    res = subprocess.run(cmd, capture_output=True, text=True)
+    if res.returncode != 0:
+        raise RuntimeError(
+            f"nvcc failed ({res.returncode}): {' '.join(cmd)}\n"
+            f"{res.stdout}\n{res.stderr}"
+        )
+    return res.stdout + res.stderr
+
+
 def build() -> Path:
     """Compile the sources unless a library of the same hash exists."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
@@ -58,17 +78,21 @@ def build() -> Path:
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    nvcc = _nvcc()
+    tag = f"{h.hexdigest()[:16]}.{os.getpid()}"
+    objs = [BUILD_DIR / f"{Path(n).stem}.{tag}.o" for n in SOURCES]
+    with ThreadPoolExecutor(len(SOURCES)) as pool:
+        logs = list(pool.map(
+            lambda src_obj: _run([nvcc, *NVCC_FLAGS, "-c", "-o",
+                                  str(src_obj[1]), str(CSRC / src_obj[0])]),
+            zip(SOURCES, objs),
+        ))
     tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-           *(str(CSRC / n) for n in SOURCES)]
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    if res.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed ({res.returncode}): {' '.join(cmd)}\n"
-            f"{res.stdout}\n{res.stderr}"
-        )
+    logs.append(_run([nvcc, "-shared", "-o", str(tmp), *map(str, objs)]))
+    for obj in objs:
+        obj.unlink()
     os.replace(tmp, out)
-    build_info["log"] = res.stdout + res.stderr
+    build_info["log"] = "".join(logs)
     return out
 
 

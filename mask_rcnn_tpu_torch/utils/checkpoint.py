@@ -14,6 +14,10 @@ conv ``W``         HWIO                   OIHW (``F.conv2d``)
 linear ``W``       (in, out)              (in, out), ``x @ W + b``
 scale, bias, b     (C,)                   (C,)
 =================  =====================  =========================
+
+A train state crosses the same way: the momentum trace of the JAX
+package's masked optax chain has the params' names and layouts for the
+trainable leaves (``train_state_from_numpy`` / ``train_state_to_numpy``).
 """
 
 from __future__ import annotations
@@ -90,3 +94,26 @@ def load_params(path: str, device="cpu"):
     with np.load(path) as data:
         flat = {k: data[k] for k in data.files}
     return params_from_numpy(flat, device)
+
+
+def train_state_from_numpy(params_flat: Dict[str, np.ndarray],
+                           momentum_flat: Dict[str, np.ndarray], step: int,
+                           device="cpu"):
+    """A JAX ``TrainState`` as flat numpy mappings -> the port's
+    ``TrainState``. ``momentum_flat`` is the masked chain's trace (the
+    trainable leaves, under the params' names and layouts) and ``step``
+    its schedule count. The trainable leaves require grad."""
+    from mask_rcnn_tpu_torch.engine.trainer import TrainState, is_trainable
+
+    params = params_from_numpy(params_flat, device)
+    for k, t in flatten_params(params).items():
+        t.requires_grad_(is_trainable(k))
+    return TrainState(params, params_from_numpy(momentum_flat, device),
+                      int(step))
+
+
+def train_state_to_numpy(state):
+    """The port's ``TrainState`` -> (params_flat, momentum_flat, step) in
+    the JAX package's layouts."""
+    return (params_to_numpy(state.params), params_to_numpy(state.momentum),
+            int(state.step))

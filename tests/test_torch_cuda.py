@@ -48,8 +48,9 @@ def test_roi_align_kernel_matches_plain(dev, dtype, bin_stride,
     torch.testing.assert_close(got.float(), want, rtol=rtol, atol=1e-5)
 
 
-@pytest.mark.parametrize("b,n,max_out", [(1, 6000, 1000), (3, 1500, 300),
-                                         (2, 100, 150), (1, 1, 5)])
+@pytest.mark.parametrize("b,n,max_out", [(2, 12000, 2000), (1, 6000, 1000),
+                                         (3, 1500, 300), (2, 100, 150),
+                                         (1, 1, 5)])
 def test_nms_blocked_kernel_matches_plain(dev, b, n, max_out):
     rng = np.random.RandomState(n)
     boxes = torch.from_numpy(np.stack(
@@ -92,3 +93,158 @@ def test_wrappers_reject_what_the_kernels_do_not_take(dev):
         nms.nms_small(torch.zeros((1, 2000, 4), device=dev),
                       torch.ones((1, 2000), dtype=torch.bool, device=dev),
                       0.5, 3)
+
+
+def border_rois(rng, n, r, h, w):
+    """Per-image rois in image coordinates (feature stride 16), the first
+    ones on and beyond the borders, one zero-padded slot."""
+    rois = np.stack([random_boxes(rng, r, h * 16, w * 16, min_size=2)
+                     for _ in range(n)])
+    rois[:, :4] = [[-20, -20, 40, 40], [h * 16 - 30, w * 16 - 30,
+                                        h * 16 + 30, w * 16 + 30],
+                   [0, 0, h * 16, w * 16], [0, 0, 0, 0]]
+    return torch.from_numpy(rois)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("bin_stride,sampling_ratio", [(1, 0), (2, 0),
+                                                       (2, 2)])
+def test_roi_align_backward_kernel_matches_plain(dev, dtype, bin_stride,
+                                                 sampling_ratio):
+    rng = np.random.RandomState(1)
+    n, h, w, c, r = 2, 13, 21, 70, 37
+    rois = border_rois(rng, n, r, h, w).to(dev)
+    g = torch.from_numpy(rng.randn(n, r, 7, 7, c).astype(np.float32))
+    g = g.to(dev, dtype)
+    args = ((h, w), 1 / 16, sampling_ratio, bin_stride)
+    got = roi_align.roi_align_grouped_backward(g, rois, *args)
+    want = roi_align.roi_align_grouped_backward_plain(g.float(), rois, *args)
+    assert got.dtype == dtype and got.is_contiguous()
+    assert got.shape == (n, h, w, c)
+    # float32: the atomics' order; bf16: one rounding of the float32 sum
+    rtol = 2.0 ** -8 if dtype == torch.bfloat16 else 1e-5
+    torch.testing.assert_close(got.float(), want, rtol=rtol,
+                               atol=1e-5 * want.abs().max().item())
+
+
+def test_roi_align_autograd_runs_both_kernels(dev):
+    rng = np.random.RandomState(2)
+    n, h, w, c = 2, 9, 11, 64
+    feats = torch.from_numpy(rng.randn(n, h, w, c).astype(np.float32))
+    rois = border_rois(rng, n, 20, h, w)
+    g = torch.from_numpy(rng.randn(n, 20, 7, 7, c).astype(np.float32))
+    f = feats.to(dev).requires_grad_(True)
+    before = (roi_align.roi_align_grouped.launches,
+              roi_align.roi_align_grouped_backward.launches)
+    out = roi_align.roi_align_grouped(f, rois.to(dev), 7, 1 / 16, 0, 2)
+    out.backward(g.to(dev))
+    assert (roi_align.roi_align_grouped.launches,
+            roi_align.roi_align_grouped_backward.launches) == (
+                before[0] + 1, before[1] + 1)
+    fc = feats.clone().requires_grad_(True)
+    roi_align.roi_align_grouped(fc, rois, 7, 1 / 16, 0, 2).backward(g)
+    torch.testing.assert_close(f.grad.cpu(), fc.grad, rtol=1e-5, atol=1e-5)
+
+
+def tie_masks(rng, n, g, h, w):
+    """Rectangles with edges on even rows/columns: a 28-pixel crop sampled
+    at 14 lands exactly midway between two mask rows (interp == 0.5)."""
+    m = np.zeros((n, g, h, w), np.uint8)
+    for i in range(n):
+        for k in range(g):
+            y1, x1 = 2 * rng.randint(0, h // 4), 2 * rng.randint(0, w // 4)
+            m[i, k, y1:y1 + 2 * rng.randint(3, 12),
+              x1:x1 + 2 * rng.randint(3, 12)] = 1
+            m[i, k] ^= (rng.rand(h, w) < 0.05).astype(np.uint8)
+    return m
+
+
+@pytest.mark.parametrize("packed", [True, False])
+def test_mask_crop_resize_kernel_matches_plain(dev, packed):
+    from mask_rcnn_tpu_torch.data.loader import pack_mask_bits
+    from mask_rcnn_tpu_torch.ops import targets
+
+    rng = np.random.RandomState(3)
+    n, g, h, w, q = 2, 5, 64, 96, 40
+    masks = tie_masks(rng, n, g, h, w)
+    rois = np.stack([random_boxes(rng, q, h, w, min_size=1)
+                     for _ in range(n)])
+    # crops of 28 and 14 pixels at even and odd offsets: exact ties
+    rois[:, :8] = [[0, 0, 28, 28], [2, 4, 30, 32], [1, 3, 29, 17],
+                   [10.5, 11.5, 38.5, 25.5], [0, 0, h, w], [5, 5, 5, 5],
+                   [h - 3, w - 3, h, w], [3.5, 2.5, 31.5, 30.5]]
+    gt_index = rng.randint(0, g, (n, q)).astype(np.int64)
+    m = pack_mask_bits(masks) if packed else masks
+    args = [torch.from_numpy(a) for a in (m, gt_index, rois)]
+    got = targets.mask_crop_resize(*(a.to(dev) for a in args), 14, packed)
+    want = targets.mask_crop_resize_plain(*args, 14, packed)
+    assert got.dtype == torch.int32
+    assert torch.equal(got.cpu(), want)
+
+
+def test_match_kernels_match_plain(dev):
+    from mask_rcnn_tpu_torch.models.mask_rcnn import MaskRCNNConfig, \
+        make_anchors
+    from mask_rcnn_tpu_torch.ops import targets
+
+    rng = np.random.RandomState(4)
+    cfg = MaskRCNNConfig(n_fg_class=3, anchor_scales=(2, 4, 8, 16, 32))
+    h, w = 320, 480
+    anchors = torch.from_numpy(make_anchors(cfg, h // 16, w // 16))
+    n, g = 3, 8
+    bbox = np.stack([random_boxes(rng, g, h, w, min_size=8)
+                     for _ in range(n)])
+    # ties: a duplicated gt, and a gt equal to an anchor
+    bbox[0, 1] = bbox[0, 0]
+    bbox[0, 2] = anchors[1000].numpy()
+    valid = np.ones((n, g), bool)
+    valid[1, 5:] = False
+    valid[2] = False  # no valid gt
+    bbox, valid = torch.from_numpy(bbox), torch.from_numpy(valid)
+    got = targets.anchor_match(anchors.to(dev), bbox.to(dev), valid.to(dev),
+                               (h, w), 0.7, 0.3)
+    want = targets.anchor_match_plain(anchors, bbox, valid, (h, w), 0.7, 0.3)
+    for a, b in zip(got, want):
+        assert torch.equal(a.cpu(), b)
+    assert (want[1][0] == 1).any()
+
+    cand = np.stack([np.concatenate([random_boxes(rng, 300, h, w),
+                                     bbox[i].numpy()]) for i in range(n)])
+    cand = torch.from_numpy(cand)
+    cvalid = torch.from_numpy(rng.rand(n, 308) > 0.1)
+    got = targets.proposal_match(cand.to(dev), cvalid.to(dev), bbox.to(dev),
+                                 valid.to(dev), 0.5, 0.5, 0.0)
+    want = targets.proposal_match_plain(cand, cvalid, bbox, valid, 0.5, 0.5,
+                                        0.0)
+    for a, b in zip(got, want):
+        assert torch.equal(a.cpu(), b)
+    assert want[2][2].any() and not want[1][2].any()  # zero-gt background
+
+
+def test_target_wrappers_reject_what_the_kernels_do_not_take(dev):
+    from mask_rcnn_tpu_torch.ops import targets
+
+    anchors = torch.zeros((10, 4), device=dev)
+    bbox = torch.zeros((1, 3, 4), device=dev)
+    valid = torch.ones((1, 3), dtype=torch.bool, device=dev)
+    with pytest.raises(ValueError):  # float64 anchors
+        targets.anchor_match(anchors.double(), bbox, valid, (8, 8), .7, .3)
+    with pytest.raises(ValueError):  # no gt slot
+        targets.anchor_match(anchors, bbox[:, :0], valid[:, :0], (8, 8),
+                             .7, .3)
+    with pytest.raises(ValueError):  # validity as uint8
+        targets.proposal_match(anchors[None],
+                               torch.ones((1, 10), dtype=torch.bool,
+                                          device=dev),
+                               bbox, valid.byte(), .5, .5, 0.)
+    masks = torch.zeros((1, 3, 8, 1), dtype=torch.uint8, device=dev)
+    idx = torch.zeros((1, 2), dtype=torch.int64, device=dev)
+    rois = torch.zeros((1, 2, 4), device=dev)
+    with pytest.raises(ValueError):  # int32 gt index
+        targets.mask_crop_resize(masks, idx.int(), rois, 14, True)
+    with pytest.raises(ValueError):  # non-contiguous rois
+        targets.mask_crop_resize(masks, idx, rois.transpose(0, 1), 14, True)
+    with pytest.raises(ValueError):  # unsupported grad dtype
+        roi_align.roi_align_grouped_backward(
+            torch.zeros((1, 2, 7, 7, 8), dtype=torch.float16, device=dev),
+            rois, (4, 4), 1 / 16)
