@@ -14,26 +14,35 @@ GPU.
    backward K7 from (2, 512, 7, 7, 1024) bf16 to (2, 52, 84, 1024); the
    mask-target crop-resize K8 of (2, 8, 832, 168) packed masks to
    (2, 128, 14, 14); anchor matching K9 of 65520 anchors and proposal
-   matching of (2, 2008) candidates to 8 gts per image;
+   matching of (2, 2008) candidates to 8 gts per image; the alternate
+   poolers' crop-and-resize K5 and max RoI pooling K6 (identical) on the
+   same features with 1000 and 100 flat rois to 14x14 bins, and their
+   backwards K11 and K12 from (1024, 14, 14, 1024) bf16 to
+   (2, 52, 84, 1024), K12 also on rois inside a block of exact zeros
+   (every position of a bin ties);
 3. checks the whole predict step, and the whole train step (losses and
    gradients, with the same sampling priorities), on the GPU against the
-   plain path on the CPU at small float32 inputs;
-4. serving path: drives ``MaskRCNNResNet.predict`` at R-50-C4, COCO (80
-   classes), anchor scales (2, 4, 8, 16, 32), min 800 / max 1333 (buckets
-   832x1344 and 1344x832), bf16, seeded random weights: three single
-   images, a batch of two, and a request at ``score_thresh=0``; checks the
-   outputs and that K1, K2 and K3 were launched during that run;
-5. training path: ``make_train_step`` at the same configuration, bf16
-   compute with float32 master params, on a synthetic batch of 2 at the
-   832x1344 bucket with 8 gts per image and bit-packed masks: 3 warm-up and
-   10 timed steps; checks that every loss is finite, that the frozen params
-   did not change and every trainable one did, and that K1, K2, K7, K8 and
-   K9 were launched during that run; then profiles two more steps.
+   plain path on the CPU at small float32 inputs, under each RoI pooler
+   (``pooling`` = ``align``, ``resize``, ``pooling``);
+4. serving path, once per pooler: drives ``MaskRCNNResNet.predict`` at
+   R-50-C4, COCO (80 classes), anchor scales (2, 4, 8, 16, 32), min 800 /
+   max 1333 (buckets 832x1344 and 1344x832), bf16, seeded random weights:
+   single images, a batch of two, and a request at ``score_thresh=0``;
+   checks the outputs and that the pooler's forward kernel (K1, K5 or K6),
+   K2 and K3 were launched during that run;
+5. training path, once per pooler: ``make_train_step`` at the same
+   configuration, bf16 compute with float32 master params, on a synthetic
+   batch of 2 at the 832x1344 bucket with 8 gts per image and bit-packed
+   masks: 3 warm-up and 10 (``align``) or 5 timed steps; checks that every
+   loss is finite, that the frozen params did not change and every
+   trainable one did, and that the pooler's kernels (K1/K7, K5/K11 or
+   K6/K12), K2, K8 and K9 were launched during that run; then profiles two
+   more steps.
 
-Prints the card's name and power limit, the train step's ms/step and
-img/s, one JSON line of kernel results, and as its last line
-``{"ok": true, "device": {...}}``. Exits non-zero, and prints no result,
-when a phase fails or no CUDA device is present.
+Prints the card's name and power limit, each path's times, one JSON line
+of kernel results, and as its last line ``{"ok": true, "device": {...}}``.
+Exits non-zero, and prints no result, when a phase fails or no CUDA device
+is present.
 """
 
 import json
@@ -45,6 +54,7 @@ import numpy as np
 
 SEED = 0
 N_CLASS_FG = 80
+POOLERS = ("align", "resize", "pooling")  # MaskRCNNConfig.pooling
 
 
 def nvidia_smi() -> str:
@@ -171,7 +181,7 @@ def check_kernels(torch, results):
         }
 
 
-def check_small_reference(torch):
+def check_small_reference(torch, pooling="align"):
     """Phase 3: the predict step on the GPU (kernels) against the plain path
     on the CPU, float32, at a small input."""
     from mask_rcnn_tpu_torch.models import mask_rcnn, rpn
@@ -179,7 +189,7 @@ def check_small_reference(torch):
 
     cfg = mask_rcnn.MaskRCNNConfig(
         n_fg_class=3, min_size=64, max_size=96, anchor_scales=(1.0, 2.0),
-        detections_per_im=8,
+        detections_per_im=8, pooling=pooling,
         proposal=rpn.ProposalConfig(n_test_pre_nms=80, n_test_post_nms=24),
     )
     params = mask_rcnn.init_params(cfg, torch.Generator().manual_seed(SEED))
@@ -199,24 +209,35 @@ def check_small_reference(torch):
     assert torch.equal(got["labels"], want["labels"]), "labels differ"
     for k, atol in (("boxes", 1e-3), ("scores", 1e-5), ("mask_probs", 1e-4)):
         err = (got[k] - want[k]).abs().max().item()
-        print(f"small f32 reference (GPU vs CPU plain): {k} max|err| "
-              f"{err:.3e} (atol {atol:g})")
+        print(f"small f32 reference, pooling={pooling} (GPU vs CPU plain): "
+              f"{k} max|err| {err:.3e} (atol {atol:g})")
         assert err <= atol, f"{k} differs from the CPU reference by {err}"
 
 
-def drive_main_path(torch, kernels):
-    """Phase 4: the port's serving path at full width; returns the launch
-    counts of the run and the steady ms per image."""
+def require_launched(counts, path):
+    """Fail unless every kernel of ``counts`` was launched on ``path``."""
+    print(f"kernel launches during the {path}: {counts}")
+    for name, c in counts.items():
+        if c <= 0:
+            raise AssertionError(f"kernel {name} was not launched on the "
+                                 f"{path}")
+
+
+def drive_main_path(torch, kernels, pooling="align"):
+    """Phase 4: the port's serving path at full width with the RoI pooler
+    ``pooling``; returns the launch counts of the run and the steady ms per
+    image."""
     from mask_rcnn_tpu_torch import MaskRCNNResNet
     from mask_rcnn_tpu_torch.data.loader import bucket_shape
 
     t0 = time.perf_counter()
     model = MaskRCNNResNet(
         n_layers=50, n_fg_class=N_CLASS_FG, min_size=800, max_size=1333,
-        anchor_scales=(2, 4, 8, 16, 32), compute_dtype="bfloat16",
-        rng_seed=SEED, device="cuda",
+        anchor_scales=(2, 4, 8, 16, 32), pooling_func=pooling,
+        compute_dtype="bfloat16", rng_seed=SEED, device="cuda",
     )
-    print(f"model built in {time.perf_counter() - t0:.2f} s")
+    print(f"model (pooling={pooling}) built in "
+          f"{time.perf_counter() - t0:.2f} s")
     rng = np.random.RandomState(SEED)
 
     def image(h, w):
@@ -224,8 +245,10 @@ def drive_main_path(torch, kernels):
 
     for wrapper in kernels:
         wrapper.launches = 0
-    requests = [[image(640, 1066)], [image(480, 640)], [image(1066, 640)],
+    requests = [[image(640, 1066)], [image(1066, 640)],
                 [image(427, 640), image(640, 480)]]
+    if pooling == "align":
+        requests.insert(1, [image(480, 640)])
     for imgs in requests:
         shapes = []
         for img in imgs:
@@ -245,10 +268,7 @@ def drive_main_path(torch, kernels):
     print(f"score_thresh=0 request -> detections {n_det}")
     assert n_det == [100, 100], "expected 100 detections per image"
     counts = {w.__name__: w.launches for w in kernels}
-    print(f"kernel launches during the main path: {counts}")
-    for name, c in counts.items():
-        if c <= 0:
-            raise AssertionError(f"kernel {name} was not launched")
+    require_launched(counts, f"serving path (pooling={pooling})")
 
     # steady state at batch 1 (kernels keep counting; counts already read)
     model.score_thresh = 0.05
@@ -263,7 +283,8 @@ def drive_main_path(torch, kernels):
     ms_img = (time.perf_counter() - t0) * 1e3 / reps
     step_ms = cuda_ms(torch, lambda: model.predict_submit(one), warmup=2,
                       iters=reps)
-    print(f"steady batch-1 predict (640x1066 -> 832x1344 bucket, bf16): "
+    print(f"steady batch-1 predict, pooling={pooling} (640x1066 -> "
+          f"832x1344 bucket, bf16): "
           f"{ms_img:.3f} ms/img end to end (host clock, synchronised), "
           f"{step_ms:.3f} ms/img prepare+predict_step (CUDA events)")
     return counts, ms_img, step_ms
@@ -422,7 +443,144 @@ def check_train_kernels(torch, results):
     results["anchor_match"] = k9
 
 
-def check_train_reference(torch):
+SERVE_ROIS = (1000, 100)  # the serving head passes' rois at batch 1
+TRAIN_ROIS = 512  # sampled rois per image at batch 2
+
+
+def check_pool_kernels(torch, results):
+    """Phase 2, the alternate poolers: K5 and K6 at the serving shapes
+    ((1, 52, 84, 1024) bf16 C4 features, 1000 and 100 rois), K11 and K12 at
+    the train shape ((2, 52, 84, 1024), 512 rois per image), each against
+    its plain version; then K12 on rois inside a block of exact zeros, where
+    every position of a bin ties."""
+    from mask_rcnn_tpu_torch.ops import roi_align as ra
+
+    dev = torch.device("cuda")
+    rng = np.random.RandomState(SEED + 2)
+    fh, fw = TRAIN_HW[0] // 16, TRAIN_HW[1] // 16
+    zero_block = (slice(10, 20), slice(20, 40))
+
+    def features(n):
+        # relu'd values: half of them exact zeros, as on relu'd res4
+        f = np.maximum(rng.randn(n, fh, fw, 1024), 0).astype(np.float32)
+        f[(0, *zero_block)] = 0.0
+        return torch.from_numpy(f).to(dev).bfloat16()
+
+    def flat_rois(n, r):
+        boxes = np.concatenate([proposal_like_boxes(rng, r, *TRAIN_HW)
+                                for _ in range(n)])
+        boxes[r - r // 20:r] = 0.0  # zero-padded slots, as proposals have
+        idx = np.repeat(np.arange(n, dtype=np.int32), r)
+        return torch.from_numpy(boxes).to(dev), torch.from_numpy(idx).to(dev)
+
+    def entry(name, line):
+        return {"name": name, "route": "cuda",
+                "source": "mask_rcnn_tpu_torch/csrc/roi_pool.cu",
+                "replaces": f"mask_rcnn_tpu/ops/roi_align.py:{line}",
+                "max_abs_err": 0.0}
+
+    def compare(label, got, want, atol):
+        """Within one bf16 rounding (2^-8 relative) of the float32 plain
+        result, plus ``atol``."""
+        torch.cuda.synchronize()
+        err = (got.float() - want.float()).abs()
+        bad = (err > atol + 2.0 ** -8 * want.float().abs()).sum().item()
+        print(f"{label}: max|err| {err.max().item():.3e} (rtol 2^-8, atol "
+              f"{atol:.3e}, {bad} outside)")
+        if bad:
+            raise AssertionError(f"{label} disagrees with its plain version "
+                                 f"at {bad} values")
+        return err.max().item()
+
+    k5, k6 = entry("crop_and_resize", 304), entry("roi_pool", 381)
+    feats = features(1)
+    for r in SERVE_ROIS:
+        args = (*flat_rois(1, r), 14, 1 / 16)
+        err = compare(f"K5 crop_and_resize {r} rois",
+                      ra.crop_and_resize(feats, *args),
+                      ra.crop_and_resize_plain(feats.float(), *args), 1e-5)
+        k5["max_abs_err"] = max(k5["max_abs_err"], err)
+        ms = cuda_ms(torch, lambda: ra.crop_and_resize(feats, *args))
+        plain_ms = cuda_ms(torch, lambda: ra.crop_and_resize_plain(
+            feats.float(), *args), warmup=1, iters=2)
+        print(f"K5 crop_and_resize {r} rois: kernel {ms:.4f} ms, plain f32 "
+              f"{plain_ms:.4f} ms")
+
+        got, want = ra.roi_pool(feats, *args), ra.roi_pool_plain(feats, *args)
+        torch.cuda.synchronize()
+        n_diff = (got != want).sum().item()
+        k6["max_abs_err"] = max(k6["max_abs_err"], float(n_diff))
+        k6_ms = cuda_ms(torch, lambda: ra.roi_pool(feats, *args))
+        k6_plain_ms = cuda_ms(torch, lambda: ra.roi_pool_plain(feats, *args),
+                              warmup=1, iters=2)
+        print(f"K6 roi_pool {r} rois: identical={n_diff == 0} (zeros "
+              f"{(want == 0).float().mean().item():.3f}), kernel "
+              f"{k6_ms:.4f} ms, plain {k6_plain_ms:.4f} ms")
+        if n_diff:
+            raise AssertionError(f"K6 differs from its plain version at "
+                                 f"{n_diff} values ({r} rois)")
+        if r == SERVE_ROIS[0]:  # the box pass's; the mask pass's is printed
+            k5["ms"], k5["plain_ms"] = ms, plain_ms
+            k6["ms"], k6["plain_ms"] = k6_ms, k6_plain_ms
+    results["crop_and_resize"], results["roi_pool"] = k5, k6
+
+    # The backwards at the train shape: 2 images x 512 rois, 14x14 bins.
+    n = 2
+    feats = features(n)
+    rois, idx = flat_rois(n, TRAIN_ROIS)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    g = torch.randn((n * TRAIN_ROIS, 14, 14, 1024), generator=gen,
+                    device=dev).bfloat16()
+    shape = (n, fh, fw)
+    for name, line, fn, plain in (
+        ("crop_and_resize_backward", 359,
+         lambda: ra.crop_and_resize_backward(g, rois, idx, shape, 1 / 16),
+         lambda: ra.crop_and_resize_backward_plain(g.float(), rois, idx,
+                                                   shape, 1 / 16)),
+        ("roi_pool_backward", 441,
+         lambda: ra.roi_pool_backward(g, feats, rois, idx, 1 / 16),
+         lambda: ra.roi_pool_backward_plain(g.float(), feats.float(), rois,
+                                            idx, 1 / 16)),
+    ):
+        got, want = fn(), plain()
+        label = f"{'K11' if 'crop' in name else 'K12'} {name} " \
+                f"{tuple(g.shape)} -> {tuple(got.shape)}"
+        # the float32 atomics' order: 1e-5 of the largest value
+        err = compare(label, got, want, 1e-5 * want.abs().max().item())
+        if not got.is_contiguous():
+            raise AssertionError(f"{name}: the grad is not contiguous NHWC")
+        ms = cuda_ms(torch, fn)
+        plain_ms = cuda_ms(torch, plain, warmup=1, iters=2)
+        print(f"{label}: kernel {ms:.4f} ms, plain f32 {plain_ms:.4f} ms")
+        results[name] = entry(name, line)
+        results[name].update(max_abs_err=err, ms=ms, plain_ms=plain_ms)
+
+    # K12's tie rule: rois inside the zero block, where every position of a
+    # bin ties; an integer gradient makes every weighted sum exact.
+    y0, x0 = zero_block[0].start * 16, zero_block[1].start * 16
+    tie = np.stack([rng.uniform(y0, y0 + 64, 64),
+                    rng.uniform(x0, x0 + 160, 64),
+                    rng.uniform(y0 + 80, y0 + 150, 64),
+                    rng.uniform(x0 + 180, x0 + 300, 64)], 1)
+    tie_rois = torch.from_numpy(tie.astype(np.float32)).to(dev)
+    tie_idx = torch.zeros(64, dtype=torch.int32, device=dev)
+    tie_g = torch.from_numpy(
+        rng.randint(-4, 5, (64, 14, 14, 1024)).astype(np.float32)
+    ).to(dev).bfloat16()
+    got = ra.roi_pool_backward(tie_g, feats, tie_rois, tie_idx, 1 / 16)
+    want = ra.roi_pool_backward_plain(tie_g, feats, tie_rois, tie_idx, 1 / 16)
+    torch.cuda.synchronize()
+    n_diff = (got != want).sum().item()
+    split = (want.float() != want.float().round()).sum().item()
+    print(f"K12 tie case (64 rois in a block of zeros): identical="
+          f"{n_diff == 0}, {split} fractional gradients from an integer one "
+          "(ties split)")
+    if n_diff or not split:
+        raise AssertionError(f"K12 tie case differs from its plain autograd "
+                             f"at {n_diff} values")
+
+
+def check_train_reference(torch, pooling="align"):
     """Phase 3, training side: the train loss and every gradient on the GPU
     (kernels) against the plain path on the CPU, float32, small input, the
     same sampling priorities."""
@@ -437,6 +595,7 @@ def check_train_reference(torch):
 
     cfg = mask_rcnn.MaskRCNNConfig(
         n_fg_class=3, min_size=64, max_size=96, anchor_scales=(1.0, 2.0, 4.0),
+        pooling=pooling,
         proposal=rpn.ProposalConfig(n_train_pre_nms=600,
                                     n_train_post_nms=120),
     )
@@ -467,8 +626,9 @@ def check_train_reference(torch):
     (want_m, want_g), (got_m, got_g) = out
     for k, v in want_m.items():
         rel = abs(got_m[k] - v) / max(abs(v), 1e-12)
-        print(f"small f32 train reference (GPU vs CPU plain): {k} "
-              f"{got_m[k]:.7g} vs {v:.7g}, rel err {rel:.2e} (rtol 1e-4)")
+        print(f"small f32 train reference, pooling={pooling} (GPU vs CPU "
+              f"plain): {k} {got_m[k]:.7g} vs {v:.7g}, rel err {rel:.2e} "
+              "(rtol 1e-4)")
         assert rel <= 1e-4, f"{k} differs from the CPU reference"
     assert want_m["roi_mask_loss"] > 0, "no positive roi in the reference"
     assert set(got_g) == set(want_g), "the GPU path grads other leaves"
@@ -476,13 +636,15 @@ def check_train_reference(torch):
                 for k, v in want_g.items())
     # cuDNN's float32 algorithms sum in another order: 2e-3 of each leaf's
     # largest gradient (readings on an H100: 2.3e-4)
-    print(f"small f32 train reference: grads of {len(want_g)} leaves, worst "
-          f"max|err| / max|grad| {worst:.3e} (tolerance 2e-3)")
+    print(f"small f32 train reference, pooling={pooling}: grads of "
+          f"{len(want_g)} leaves, worst max|err| / max|grad| {worst:.3e} "
+          "(tolerance 2e-3)")
     assert worst <= 2e-3, "gradients differ from the CPU reference"
 
 
-def drive_train_path(torch, kernels):
-    """Phase 5: the port's training path at full width; returns the launch
+def drive_train_path(torch, kernels, pooling="align", reps=10):
+    """Phase 5: the port's training path at full width with the RoI pooler
+    ``pooling``, 3 warm-up and ``reps`` timed steps; returns the launch
     counts of the run and the step's timings."""
     from mask_rcnn_tpu_torch import (
         create_train_state,
@@ -498,7 +660,7 @@ def drive_train_path(torch, kernels):
     dev = torch.device("cuda")
     t0 = time.perf_counter()
     cfg = MaskRCNNConfig(n_fg_class=N_CLASS_FG, min_size=800, max_size=1333,
-                         anchor_scales=(2, 4, 8, 16, 32),
+                         anchor_scales=(2, 4, 8, 16, 32), pooling=pooling,
                          compute_dtype="bfloat16")
     params = init_params(cfg, torch.Generator().manual_seed(SEED), dev)
     opt, _ = make_optimizer(params, 0.02, 1000)
@@ -508,7 +670,8 @@ def drive_train_path(torch, kernels):
     step = make_train_step(cfg, opt)
     flat = flatten_params(params)
     before = {k: v.detach().clone() for k, v in flat.items()}
-    print(f"train state built in {time.perf_counter() - t0:.2f} s: "
+    print(f"train state (pooling={pooling}) built in "
+          f"{time.perf_counter() - t0:.2f} s: "
           f"{len(opt.trainable)} trainable and "
           f"{len(flat) - len(opt.trainable)} frozen leaves, "
           f"{sum(v.numel() for v in flat.values())} params")
@@ -521,7 +684,6 @@ def drive_train_path(torch, kernels):
         history.append(metrics)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    reps = 10
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     t0 = time.perf_counter()
@@ -536,7 +698,7 @@ def drive_train_path(torch, kernels):
     counts = {w.__name__: w.launches for w in kernels}
     peak_gb = torch.cuda.max_memory_allocated() / 2**30
 
-    assert state.step == 13, state.step
+    assert state.step == 3 + reps, state.step
     losses = torch.stack([torch.stack(list(m.values())) for m in history])
     assert torch.isfinite(losses).all(), "a train loss is not finite"
     print("train losses (step: rpn_loc rpn_cls roi_loc roi_cls roi_mask "
@@ -549,14 +711,11 @@ def drive_train_path(torch, kernels):
     assert not changed, f"frozen params changed: {changed[:5]}"
     assert not still, f"trainable params did not move: {still[:5]}"
     print(f"{len(frozen)} frozen leaves bit-unchanged, all "
-          f"{len(opt.trainable)} trainable leaves moved after 13 steps")
-    print(f"kernel launches during the train path: {counts}")
-    for name in ("roi_align_grouped", "nms_blocked",
-                 "roi_align_grouped_backward", "mask_crop_resize",
-                 "anchor_match", "proposal_match"):
-        if counts[name] <= 0:
-            raise AssertionError(f"kernel {name} was not launched")
-    print(f"train step, b{n} {h}x{w} bf16 (float32 masters), R-50-C4 COCO: "
+          f"{len(opt.trainable)} trainable leaves moved after {3 + reps} "
+          "steps")
+    require_launched(counts, f"train path (pooling={pooling})")
+    print(f"train step, pooling={pooling}, b{n} {h}x{w} bf16 (float32 "
+          f"masters), R-50-C4 COCO: "
           f"{ms:.3f} ms/step (CUDA events over {reps} steps after 3 warm-up), "
           f"{n * 1e3 / ms:.3f} img/s; host clock {host_ms:.3f} ms/step; "
           f"peak allocated {peak_gb:.2f} GiB")
@@ -570,6 +729,10 @@ def kernel_group(name):
     for group, keys in (
         ("K1 roi_align fwd", ("roi_align_fwd",)),
         ("K7 roi_align bwd", ("roi_align_bwd",)),
+        ("K5 crop_resize fwd", ("crop_resize_fwd",)),
+        ("K11 crop_resize bwd", ("crop_resize_bwd",)),
+        ("K6 roi_pool fwd", ("roi_pool_fwd",)),
+        ("K12 roi_pool bwd", ("roi_pool_bwd",)),
         ("K2 nms", ("nms_mask", "nms_scan")),
         ("K8/K9 targets", ("anchor_", "proposal_match", "mask_crop")),
         ("conv/matmul (cuDNN, cuBLAS)", ("conv", "gemm", "xmma", "cutlass",
@@ -659,34 +822,53 @@ def main() -> int:
     results = {}
     check_kernels(torch, results)
     check_train_kernels(torch, results)
-    check_small_reference(torch)
-    check_train_reference(torch)
-    kernels = (roi_align.roi_align_grouped, nms.nms_blocked, nms.nms_small)
-    counts, ms_img, step_ms = drive_main_path(torch, kernels)
-    for name, c in counts.items():
-        results[name]["launches"] = c
+    check_pool_kernels(torch, results)
+    for pooling in POOLERS:
+        check_small_reference(torch, pooling)
+        check_train_reference(torch, pooling)
 
-    train_kernels = (roi_align.roi_align_grouped, nms.nms_blocked,
-                     roi_align.roi_align_grouped_backward,
-                     targets.mask_crop_resize, targets.anchor_match,
-                     targets.proposal_match)
-    train_counts, train_ms, train_host_ms, peak_gb = drive_train_path(
-        torch, train_kernels)
-    results["roi_align_grouped_backward"]["launches"] = train_counts[
-        "roi_align_grouped_backward"]
-    results["mask_crop_resize"]["launches"] = train_counts["mask_crop_resize"]
-    results["anchor_match"]["launches"] = (train_counts["anchor_match"]
-                                           + train_counts["proposal_match"])
+    # Each main path runs with its kernels' counts set to 0 just before it
+    # and read just after; a kernel's "launches" sums its main-path runs.
+    pool_fwd = {"align": roi_align.roi_align_grouped,
+                "resize": roi_align.crop_and_resize,
+                "pooling": roi_align.roi_pool}
+    pool_bwd = {"align": roi_align.roi_align_grouped_backward,
+                "resize": roi_align.crop_and_resize_backward,
+                "pooling": roi_align.roi_pool_backward}
+    launches, serving, training = {}, {}, {}
 
-    print(json.dumps({"predict_ms_per_img_b1": ms_img,
-                      "predict_submit_ms_per_img_b1": step_ms,
-                      "train_ms_per_step_b2": train_ms,
-                      "train_img_per_s_b2": 2e3 / train_ms,
-                      "train_host_ms_per_step_b2": train_host_ms,
-                      "train_peak_gib": peak_gb,
-                      "train_launches": train_counts, "card": smi}))
+    def count(counts):
+        for name, c in counts.items():
+            launches[name] = launches.get(name, 0) + c
+
+    for pooling in POOLERS:
+        counts, ms_img, step_ms = drive_main_path(
+            torch, (pool_fwd[pooling], nms.nms_blocked, nms.nms_small),
+            pooling)
+        count(counts)
+        serving[pooling] = {"predict_ms_per_img_b1": ms_img,
+                            "predict_submit_ms_per_img_b1": step_ms}
+    for pooling in POOLERS:
+        counts, ms, host_ms, peak_gb = drive_train_path(
+            torch, (pool_fwd[pooling], nms.nms_blocked, pool_bwd[pooling],
+                    targets.mask_crop_resize, targets.anchor_match,
+                    targets.proposal_match),
+            pooling, reps=10 if pooling == "align" else 5)
+        count(counts)
+        training[pooling] = {"train_ms_per_step_b2": ms,
+                             "train_img_per_s_b2": 2e3 / ms,
+                             "train_host_ms_per_step_b2": host_ms,
+                             "train_peak_gib": peak_gb, "launches": counts}
+    launches["anchor_match"] += launches.pop("proposal_match")
+    for name, entry in results.items():
+        entry["launches"] = launches[name]
+
+    print(json.dumps({"serving": serving, "training": training,
+                      "card": smi}))
     order = ("roi_align_grouped", "nms_blocked", "nms_small",
-             "roi_align_grouped_backward", "mask_crop_resize", "anchor_match")
+             "roi_align_grouped_backward", "mask_crop_resize", "anchor_match",
+             "crop_and_resize", "crop_and_resize_backward", "roi_pool",
+             "roi_pool_backward")
     print(json.dumps({"kernels": [results[k] for k in order]}))
     print(nvidia_smi())
     print(json.dumps({"ok": True, "device": {

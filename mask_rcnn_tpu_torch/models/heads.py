@@ -1,9 +1,12 @@
 """C4 RoI head: res5 + box/class/mask branches, the port of
 ``mask_rcnn_tpu/models/heads.py`` on grouped rois.
 
-RoIAlign (kernel K1) -> res5 -> 7x7 mean -> linear cls_loc (n_class*4) /
-score (n_class); mask branch: relu(deconv 2x2/2: 2048 -> 256) -> 1x1 conv ->
-n_fg_class logits. Outputs are NHWC and flat over rois, roi-major.
+RoI pooling -> res5 -> 7x7 mean -> linear cls_loc (n_class*4) / score
+(n_class); mask branch: relu(deconv 2x2/2: 2048 -> 256) -> 1x1 conv ->
+n_fg_class logits. Outputs are NHWC and flat over rois, roi-major. The
+pooler is the config's ``pooling``: ``"align"`` RoIAlign (kernels K1/K7),
+``"resize"`` crop-and-resize (K5/K11) or ``"pooling"`` quantized max RoI
+pooling (K6/K12).
 """
 
 from __future__ import annotations
@@ -18,7 +21,7 @@ from mask_rcnn_tpu_torch.models.resnet import (
     nhwc,
     res5_forward,
 )
-from mask_rcnn_tpu_torch.ops.roi_align import roi_align_grouped
+from mask_rcnn_tpu_torch.ops.roi_align import POOLING_FUNCS, roi_align_grouped
 
 
 def deconv2x2_s2(x, w, b):
@@ -28,18 +31,22 @@ def deconv2x2_s2(x, w, b):
 
 def head_forward(params, features, rois, roi_size=14,
                  spatial_scale=1.0 / 16, pred_bbox=True, pred_mask=True,
-                 sampling_ratio=0, mask_subset=None):
+                 pooling="align", sampling_ratio=0, mask_subset=None):
     """Run the RoI head on rois grouped per image.
 
     Args:
         features: (N, H, W, C) C4 features.
         rois: (N, R, 4) float32 boxes in input-image coordinates.
+        pooling: a key of ``POOLING_FUNCS``.
 
-    With ``roi_size = 7*s`` and s > 1 the caffe-convention res5 reads only
-    every s-th pooled cell (its stride sits on 1x1 convs), so only those
-    bins are pooled (``bin_stride=s``) and res5 runs at stride 1: identical
-    values for 1/s^2 of the pooling work
-    (mask_rcnn_tpu/models/heads.py:67-86).
+    Under ``"align"`` with ``roi_size = 7*s`` and s > 1 the caffe-convention
+    res5 reads only every s-th pooled cell (its stride sits on 1x1 convs),
+    so only those bins are pooled (``bin_stride=s``) and res5 runs at stride
+    1: identical values for 1/s^2 of the pooling work
+    (mask_rcnn_tpu/models/heads.py:67-86). ``"resize"`` and ``"pooling"``
+    take the rois flat with their image indices, pool ``roi_size`` bins and
+    run res5 at stride s (heads.py:88-114); ``sampling_ratio`` is RoIAlign's
+    alone.
 
     ``mask_subset``: optional (M,) flat row indices of the rois to run the
     mask branch on (training: only positive samples carry mask targets).
@@ -48,12 +55,21 @@ def head_forward(params, features, rois, roi_size=14,
     (N*R, n_class), masks (N*R or M, 14, 14, n_fg_class) logits.
     """
     s5 = roi_size // 7
-    size, bin_stride = (7, s5) if s5 > 1 else (roi_size, 1)
-    pool = roi_align_grouped(features, rois, size, spatial_scale,
-                             sampling_ratio, bin_stride)
-    h = res5_forward(params["res5"],
-                     pool.reshape(-1, size, size, features.shape[-1]),
-                     stride=1)
+    if pooling == "align":
+        size, bin_stride = (7, s5) if s5 > 1 else (roi_size, 1)
+        pool = roi_align_grouped(features, rois, size, spatial_scale,
+                                 sampling_ratio, bin_stride)
+        h = res5_forward(params["res5"],
+                         pool.reshape(-1, size, size, features.shape[-1]),
+                         stride=1)
+    else:
+        n, r = rois.shape[:2]
+        # jnp.repeat(arange(n), r): each roi's image index
+        roi_indices = torch.arange(n * r, dtype=torch.int32,
+                                   device=rois.device) // r
+        pool = POOLING_FUNCS[pooling](features, rois.reshape(n * r, 4),
+                                      roi_indices, roi_size, spatial_scale)
+        h = res5_forward(params["res5"], pool, stride=s5)
 
     out = {}
     if pred_bbox:

@@ -22,6 +22,7 @@ from mask_rcnn_tpu_torch.models import heads, resnet, rpn
 from mask_rcnn_tpu_torch.ops import anchors as anchor_ops
 from mask_rcnn_tpu_torch.ops.boxes import loc2bbox
 from mask_rcnn_tpu_torch.ops.nms import nms_padded
+from mask_rcnn_tpu_torch.ops.roi_align import POOLING_FUNCS
 from mask_rcnn_tpu_torch.models.rpn import top_k_stable
 
 
@@ -29,8 +30,10 @@ from mask_rcnn_tpu_torch.models.rpn import top_k_stable
 class MaskRCNNConfig:
     """Static model/inference configuration (the JAX package's defaults).
 
-    Only ``pooling="align"`` is ported: the ``resize`` and ``pooling`` RoI
-    functions are still to be ported.
+    ``pooling`` picks the head's RoI pooler (``ops.roi_align.POOLING_FUNCS``,
+    the reference's ``--pooling-func``): ``"align"`` RoIAlign (kernels
+    K1/K7), ``"resize"`` crop-and-resize (K5/K11) or ``"pooling"``
+    quantized max RoI pooling (K6/K12).
     """
 
     n_fg_class: int
@@ -61,9 +64,10 @@ class MaskRCNNConfig:
     remat: bool = False
 
     def __post_init__(self):
-        if self.pooling != "align":
+        if self.pooling not in POOLING_FUNCS:
             raise ValueError(
-                f"pooling={self.pooling!r} is not ported; use 'align'"
+                f"pooling={self.pooling!r}: expected one of "
+                f"{sorted(POOLING_FUNCS)}"
             )
 
     @property
@@ -252,7 +256,7 @@ def predict_step(params, cfg: MaskRCNNConfig, images, sizes,
     head_out = heads.head_forward(
         params["head"], feats, rois, roi_size=cfg.roi_size,
         spatial_scale=spatial_scale, pred_bbox=True, pred_mask=False,
-        sampling_ratio=cfg.sampling_ratio,
+        pooling=cfg.pooling, sampling_ratio=cfg.sampling_ratio,
     )
     boxes, labels, det_scores, valid = decode(
         cfg, rois, rois_valid, head_out["cls_locs"].reshape(n, rp, -1),
@@ -264,7 +268,7 @@ def predict_step(params, cfg: MaskRCNNConfig, images, sizes,
     masks = heads.head_forward(
         params["head"], feats, mask_rois, roi_size=cfg.roi_size,
         spatial_scale=spatial_scale, pred_bbox=False, pred_mask=True,
-        sampling_ratio=cfg.sampling_ratio,
+        pooling=cfg.pooling, sampling_ratio=cfg.sampling_ratio,
     )["masks"].reshape(n, d, cfg.mask_size, cfg.mask_size, cfg.n_fg_class)
     sel = labels.clamp(min=0).long()
     mask_logits = torch.gather(

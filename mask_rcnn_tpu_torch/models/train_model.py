@@ -3,7 +3,8 @@
 
 The per-image target creators run batched (``models/targets.py``, kernels
 K8 and K9); proposals come from the detached RPN outputs through K2 at the
-train counts; the head's RoIAlign runs K1 forward and K7 backward. Padded
+train counts; the head's pooler runs K1/K7 (RoIAlign), K5/K11
+(crop-and-resize) or K6/K12 (max RoI pooling), forward/backward. Padded
 and unfilled slots carry label -1, which every loss ignores and excludes
 from its normalizer, so the padded static-shape losses equal the
 reference's ragged ones.
@@ -113,7 +114,8 @@ def train_loss(
     head_out = heads.head_forward(
         params["head"], feats, sample_rois, roi_size=cfg.roi_size,
         spatial_scale=1.0 / cfg.feat_stride, pred_bbox=True, pred_mask=True,
-        sampling_ratio=cfg.sampling_ratio, mask_subset=mask_subset,
+        pooling=cfg.pooling, sampling_ratio=cfg.sampling_ratio,
+        mask_subset=mask_subset,
     )
 
     # ---- RPN losses ----

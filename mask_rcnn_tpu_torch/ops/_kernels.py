@@ -22,7 +22,7 @@ from pathlib import Path
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-SOURCES = ("roi_align.cu", "nms.cu", "targets.cu")
+SOURCES = ("roi_align.cu", "nms.cu", "targets.cu", "roi_pool.cu")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas=-v",
@@ -40,6 +40,14 @@ _SIGNATURES = {
                              _P, _P),
     "mrcnn_mask_crop_resize": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P,
                                _P),
+    # (pointers..., dtype, N, R, H, W, C, P, spatial_scale, stream)
+    "mrcnn_crop_resize_fwd": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F,
+                              _P),
+    "mrcnn_crop_resize_bwd": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F,
+                              _P),
+    "mrcnn_roi_pool_fwd": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _P),
+    "mrcnn_roi_pool_bwd": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F,
+                           _P),
     "mrcnn_nms_blocked": (_P, _P, _P, _I, _I, _F, _I, _P, _P, _P),
     "mrcnn_nms_small": (_P, _P, _I, _I, _F, _I, _P, _P, _P),
 }

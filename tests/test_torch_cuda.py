@@ -248,3 +248,179 @@ def test_target_wrappers_reject_what_the_kernels_do_not_take(dev):
         roi_align.roi_align_grouped_backward(
             torch.zeros((1, 2, 7, 7, 8), dtype=torch.float16, device=dev),
             rois, (4, 4), 1 / 16)
+
+
+def flat_edge_rois(rng, n, h, w, r):
+    """Flat rois (feature stride 16) with image indices: half-integer scaled
+    ends (round half to even), extents near multiples of 7, crops of one
+    cell, rois past the borders, a zero slot, then random boxes."""
+    fixed = np.array([
+        [40, 56, 120, 152], [8, 24, 72, 88], [0, 0, 80, 96],
+        [16, 16, 112, 112], [0, 16, 112, 128], [0, 0, 192, 16],
+        [32, 32, 32, 32], [50, 60, 52, 61], [-40, -30, 60, 80],
+        [h * 16 - 40, w * 16 - 50, h * 16 + 60, w * 16 + 70],
+        [-10, -10, h * 16 + 100, w * 16 + 100], [0, 0, 0, 0],
+    ], np.float32)
+    rois = np.concatenate([fixed, random_boxes(rng, r - len(fixed), h * 16,
+                                               w * 16, min_size=2)])
+    idx = rng.randint(0, n, r).astype(np.int32)
+    return torch.from_numpy(rois), torch.from_numpy(idx)
+
+
+def tie_features(rng, n, h, w, c):
+    """Relu'd values on a coarse grid, with a block of exact zeros: the max
+    ties often, as on relu'd res4 features."""
+    f = np.maximum(rng.randint(-3, 4, (n, h, w, c)), 0).astype(np.float32)
+    f[0, 2:8, 3:12] = 0.0
+    return torch.from_numpy(f)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("out_size", [14, 7])
+def test_crop_and_resize_kernels_match_plain(dev, dtype, out_size):
+    rng = np.random.RandomState(5)
+    n, h, w, c, r = 2, 13, 21, 70, 45  # c not a multiple of the thread tile
+    feats = torch.from_numpy(rng.randn(n, h, w, c).astype(np.float32))
+    rois, idx = flat_edge_rois(rng, n, h, w, r)
+    f, rd, i = feats.to(dev, dtype), rois.to(dev), idx.to(dev)
+    got = roi_align.crop_and_resize(f, rd, i, out_size, 1 / 16)
+    want = roi_align.crop_and_resize_plain(f.float(), rd, i, out_size, 1 / 16)
+    assert got.dtype == dtype
+    # float32: summation order; bf16: one rounding of the float32 result
+    rtol = 2.0 ** -8 if dtype == torch.bfloat16 else 1e-5
+    torch.testing.assert_close(got.float(), want, rtol=rtol, atol=1e-5)
+
+    g = torch.from_numpy(rng.randn(r, out_size, out_size, c).astype(
+        np.float32)).to(dev, dtype)
+    got = roi_align.crop_and_resize_backward(g, rd, i, (n, h, w), 1 / 16)
+    want = roi_align.crop_and_resize_backward_plain(g.float(), rd, i,
+                                                    (n, h, w), 1 / 16)
+    assert got.dtype == dtype and got.is_contiguous()
+    assert got.shape == (n, h, w, c)
+    # float32: the atomics' order; bf16: one rounding of the float32 sum
+    torch.testing.assert_close(got.float(), want, rtol=rtol,
+                               atol=1e-5 * want.abs().max().item())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("out_size", [14, 7, 2])
+def test_roi_pool_kernels_match_plain(dev, dtype, out_size):
+    rng = np.random.RandomState(6)
+    n, h, w, c, r = 2, 13, 21, 70, 45
+    feats = tie_features(rng, n, h, w, c)
+    feats[1] = torch.from_numpy(rng.randn(h, w, c).astype(np.float32))
+    rois, idx = flat_edge_rois(rng, n, h, w, r)
+    f, rd, i = feats.to(dev, dtype), rois.to(dev), idx.to(dev)
+    got = roi_align.roi_pool(f, rd, i, out_size, 1 / 16)
+    want = roi_align.roi_pool_plain(f, rd, i, out_size, 1 / 16)
+    assert got.dtype == dtype
+    assert torch.equal(got, want)  # the max is exact
+    assert (want == 0).any()  # empty bins and zero maxima
+
+    # an integer cotangent: tie weights are powers of two, every sum exact
+    g = torch.from_numpy(rng.randint(-4, 5, (r, out_size, out_size, c)))
+    g = g.to(dev, dtype)
+    got = roi_align.roi_pool_backward(g, f, rd, i, 1 / 16)
+    want = roi_align.roi_pool_backward_plain(g, f, rd, i, 1 / 16)
+    assert got.dtype == dtype and got.is_contiguous()
+    if dtype == torch.float32:
+        assert torch.equal(got, want)
+    # a random cotangent: the atomics' order, and one bf16 rounding
+    g = torch.from_numpy(rng.randn(r, out_size, out_size, c).astype(
+        np.float32)).to(dev, dtype)
+    got = roi_align.roi_pool_backward(g, f, rd, i, 1 / 16)
+    want = roi_align.roi_pool_backward_plain(g.float(), f.float(), rd, i,
+                                             1 / 16)
+    rtol = 2.0 ** -8 if dtype == torch.bfloat16 else 1e-5
+    torch.testing.assert_close(got.float(), want, rtol=rtol,
+                               atol=1e-5 * want.abs().max().item())
+
+
+def test_roi_pool_backward_kernel_splits_ties(dev):
+    """An all-zero map: every position of a bin ties, and the weights are
+    jax.grad's halving chain (tests/test_torch_pooling.py)."""
+    feats = torch.zeros((1, 8, 8, 40))
+    rois = torch.tensor([[0.0, 0.0, 63.0, 63.0]])
+    idx = torch.zeros(1, dtype=torch.int32)
+    g = torch.ones((1, 2, 2, 40))
+    want = roi_align.roi_pool_backward_plain(g, feats, rois, idx, 1 / 16)
+    got = roi_align.roi_pool_backward(g.to(dev), feats.to(dev), rois.to(dev),
+                                      idx.to(dev), 1 / 16)
+    assert torch.equal(got.cpu(), want)
+    assert want[0, 2, 2, 0] == 9 / 16 and want[0, 0, 0, 0] == 1 / 16
+
+
+@pytest.mark.parametrize("fn,fwd,bwd", [
+    ("crop_and_resize", "crop_and_resize", "crop_and_resize_backward"),
+    ("roi_pool", "roi_pool", "roi_pool_backward")])
+def test_pool_autograd_runs_both_kernels(dev, fn, fwd, bwd):
+    rng = np.random.RandomState(7)
+    n, h, w, c, r = 2, 9, 11, 64, 20
+    feats = tie_features(rng, n, h, w, c)
+    rois, idx = flat_edge_rois(rng, n, h, w, r)
+    g = torch.from_numpy(rng.randn(r, 14, 14, c).astype(np.float32))
+    pool = getattr(roi_align, fn)
+    counters = (getattr(roi_align, fwd), getattr(roi_align, bwd))
+    before = [k.launches for k in counters]
+    f = feats.to(dev).requires_grad_(True)
+    pool(f, rois.to(dev), idx.to(dev), 14, 1 / 16).backward(g.to(dev))
+    assert [k.launches for k in counters] == [b + 1 for b in before]
+    fc = feats.clone().requires_grad_(True)
+    pool(fc, rois, idx, 14, 1 / 16).backward(g)
+    torch.testing.assert_close(f.grad.cpu(), fc.grad, rtol=1e-5,
+                               atol=1e-5 * fc.grad.abs().max().item())
+
+
+@pytest.mark.parametrize("fn", ["crop_and_resize", "roi_pool"])
+def test_pool_wrappers_reject_what_the_kernels_do_not_take(dev, fn):
+    pool = getattr(roi_align, fn)
+    feats = torch.zeros((2, 4, 4, 8), device=dev)
+    rois = torch.zeros((3, 4), device=dev)
+    idx = torch.zeros(3, dtype=torch.int32, device=dev)
+    for bad in (
+        (feats.half(), rois, idx),  # float16 features
+        (feats.transpose(1, 2), rois, idx),  # not contiguous NHWC
+        (feats, rois.double(), idx),  # float64 rois
+        (feats, rois[None], idx),  # grouped rois
+        (feats, rois, idx.long()),  # int64 indices
+        (feats, rois, idx[:2]),  # one index short
+        (feats, rois.cpu(), idx),  # rois on another device
+    ):
+        with pytest.raises(ValueError):
+            pool(*bad, 14, 1 / 16)
+    g = torch.zeros((3, 14, 14, 8), device=dev)
+    with pytest.raises(ValueError):  # float16 gradient
+        roi_align.crop_and_resize_backward(g.half(), rois, idx, (2, 4, 4),
+                                           1 / 16)
+    with pytest.raises(ValueError):  # gradient and features of two dtypes
+        roi_align.roi_pool_backward(g.bfloat16(), feats, rois, idx, 1 / 16)
+
+
+@pytest.mark.parametrize("pooling", ["resize", "pooling"])
+@pytest.mark.parametrize("n", [1, 2])
+def test_head_forward_runs_pool_kernels(dev, pooling, n):
+    """The head flattens grouped rois for the alternate poolers (contiguous
+    int32 image indices at any batch) and agrees with its CPU run."""
+    from mask_rcnn_tpu_torch.models import heads
+    from mask_rcnn_tpu_torch.models.mask_rcnn import (
+        map_params,
+        set_float32_precision,
+    )
+
+    set_float32_precision()  # no TF32 in the float32 convs
+    rng = np.random.RandomState(8)
+    h, w, r = 5, 7, 6
+    feats = torch.from_numpy(
+        np.maximum(rng.randn(n, h, w, 1024), 0).astype(np.float32))
+    rois = torch.from_numpy(np.stack(
+        [random_boxes(rng, r, h * 16, w * 16, min_size=4) for _ in range(n)]))
+    params = heads.init_head(torch.Generator().manual_seed(0), 3)
+    want = heads.head_forward(params, feats, rois, pooling=pooling)
+    kernel = roi_align.POOLING_FUNCS[pooling]
+    before = kernel.launches
+    got = heads.head_forward(map_params(lambda t: t.to(dev), params),
+                             feats.to(dev), rois.to(dev), pooling=pooling)
+    assert kernel.launches == before + 1
+    for k in want:
+        torch.testing.assert_close(got[k].cpu(), want[k], rtol=1e-4,
+                                   atol=1e-4 * want[k].abs().max().item())
