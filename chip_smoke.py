@@ -35,9 +35,19 @@ GPU.
    batch of 2 at the 832x1344 bucket with 8 gts per image and bit-packed
    masks: 3 warm-up and 10 (``align``) or 5 timed steps; checks that every
    loss is finite, that the frozen params did not change and every
-   trainable one did, and that the pooler's kernels (K1/K7, K5/K11 or
-   K6/K12), K2, K8 and K9 were launched during that run; then profiles two
-   more steps.
+   trainable one did, and that the stem K10, the pooler's kernels (K1/K7,
+   K5/K11 or K6/K12), K2, K8 and K9 were launched during that run; then
+   profiles two more steps (the serving path checks K10 too);
+6. flat head path: ``head_forward`` on flat rois with image indices (R-50
+   res5, 80 classes, bf16, a 1300/700 split over a 2-image 832x1344 batch),
+   forward and backward; checks that K4 and K13 were launched, then the
+   flat head against the grouped one at equal counts;
+7. train loop: ``engine/loop.py::train`` at the train path's
+   configuration on 16 in-memory 480x640 images (8 steps an epoch) with
+   COCO evaluation on 4 more, a checkpoint, evaluation and a log entry
+   every 4 steps; run A stops at step 4, run B resumes from its checkpoint
+   (restored bit for bit) to step 8; checks the artifacts, finite losses
+   and that K10, K1, K2, K3, K7, K8 and K9 were launched.
 
 Prints the card's name and power limit, each path's times, one JSON line
 of kernel results, and as its last line ``{"ok": true, "device": {...}}``.
@@ -46,6 +56,7 @@ is present.
 """
 
 import json
+import os
 import subprocess
 import sys
 import time
@@ -79,6 +90,55 @@ def cuda_ms(torch, fn, warmup=3, iters=20):
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / iters
+
+
+# The least time the card could take: bytes at
+# the H100's 3.35 TB/s, operations at the published peak for their type
+# (bf16 989 TFLOP/s on the tensor cores, float32 67 TFLOP/s on the CUDA
+# cores), whichever is larger.
+HBM_BYTES_PER_S = 3.35e12
+PEAK_FLOPS = {"bf16": 989e12, "f32": 67e12}
+
+
+def nbytes(*tensors):
+    """Bytes of the tensors: each input read once, each output written
+    once."""
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def bound(n_bytes, flops, peak="f32"):
+    """The kernel line's bound keys; no single torch call computes any of
+    these functions (torchvision is not installed), so library_ms is
+    null."""
+    t_bytes = n_bytes / HBM_BYTES_PER_S
+    t_ops = flops / PEAK_FLOPS[peak]
+    return {"bound_ms": max(t_bytes, t_ops) * 1e3,
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "library_ms": None}
+
+
+def align_samples(rois, feat_hw, p=7, s=2, scale=1 / 16):
+    """RoIAlign's bilinear samples for these rois: sum over rois of
+    P*P*gy*gx with Detectron's adaptive grid (8 float ops per sample and
+    channel: four taps, each a multiply-add)."""
+    r = np.asarray(rois, np.float32).reshape(-1, 4) * np.float32(scale)
+    full = p * s
+    ext = np.maximum(r[:, 2:] - r[:, :2], 1.0)
+    gy = np.clip(np.ceil(ext[:, 0] / full), 1, -(-feat_hw[0] // full))
+    gx = np.clip(np.ceil(ext[:, 1] / full), 1, -(-feat_hw[1] // full))
+    return float((gy * gx).sum()) * p * p
+
+
+def nms_pairs(idx, mask, n, max_out):
+    """IoU pairs a greedy NMS needs on this data: each kept box against the
+    candidates after it, up to the row where the scan stopped (12 float ops
+    a pair)."""
+    pairs = 0
+    for row_idx, row_mask in zip(idx.cpu().numpy(), mask.cpu().numpy()):
+        kept = row_idx[row_mask]
+        stop = kept.max() + 1 if len(kept) >= max_out else n
+        pairs += int((stop - kept - 1).clip(min=0).sum())
+    return pairs
 
 
 def proposal_like_boxes(rng, n, h, w):
@@ -139,6 +199,8 @@ def check_kernels(torch, results):
                                  f"{bad} values ({r} rois)")
         if r == 1000:  # the box pass's shape; the mask pass's is printed
             k1["ms"], k1["plain_ms"] = ms, plain_ms
+            k1.update(bound(nbytes(feats, rois, got), 8 * 1024 *
+                            align_samples(boxes, (52, 84))))
     results["roi_align_grouped"] = k1
 
     # K2: 6000 score-sorted proposals -> 1000 at 0.7; a tail of invalid
@@ -178,6 +240,8 @@ def check_kernels(torch, results):
             "source": "mask_rcnn_tpu_torch/csrc/nms.cu",
             "replaces": f"mask_rcnn_tpu/ops/nms.py:{line}",
             "max_abs_err": float(n_diff), "ms": ms, "plain_ms": plain_ms,
+            **bound(nbytes(b, v, idx, mask),
+                    12 * nms_pairs(idx, mask, b.shape[1], k)),
         }
 
 
@@ -347,7 +411,10 @@ def check_train_kernels(torch, results):
         "name": "roi_align_grouped_backward", "route": "cuda",
         "source": "mask_rcnn_tpu_torch/csrc/roi_align.cu",
         "replaces": "mask_rcnn_tpu/ops/roi_align.py:282",
-        "max_abs_err": err.max().item(), "ms": ms, "plain_ms": plain_ms}
+        "max_abs_err": err.max().item(), "ms": ms, "plain_ms": plain_ms,
+        **bound(nbytes(g, rois, got),
+                8 * 1024 * align_samples(rois.cpu().numpy(), (h // 16,
+                                                              w // 16)))}
 
     # K2 at the train counts: (2, 12000) score-sorted proposals -> 2000 at
     # 0.7, a (2, 12000, 188) int64 scratch; a tail of invalid rows.
@@ -400,7 +467,10 @@ def check_train_kernels(torch, results):
         "name": "mask_crop_resize", "route": "cuda",
         "source": "mask_rcnn_tpu_torch/csrc/targets.cu",
         "replaces": "mask_rcnn_tpu/models/targets.py:190",
-        "max_abs_err": float(n_diff), "ms": ms, "plain_ms": plain_ms}
+        "max_abs_err": float(n_diff), "ms": ms, "plain_ms": plain_ms,
+        # a bilinear sample of the mask per cell: 8 ops
+        **bound(nbytes(batch["mask"], gt_index, crop_rois, got),
+                8 * got.numel())}
 
     # K9: 65520 anchors of the 52x84 grid, and 2000 proposals + 8 gts.
     cfg = MaskRCNNConfig(n_fg_class=N_CLASS_FG,
@@ -414,19 +484,24 @@ def check_train_kernels(torch, results):
           "source": "mask_rcnn_tpu_torch/csrc/targets.cu",
           "replaces": "mask_rcnn_tpu/models/targets.py:54",
           "max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0}
-    for name, fn, plain in (
+    k9_bytes = k9_flops = 0
+    for name, fn, plain, ins, pairs in (
         ("anchor_match",
          lambda: targets.anchor_match(anchors, batch["bbox"],
                                       batch["bbox_valid"], (h, w), 0.7, 0.3),
          lambda: targets.anchor_match_plain(anchors, batch["bbox"],
                                             batch["bbox_valid"], (h, w),
-                                            0.7, 0.3)),
+                                            0.7, 0.3),
+         (anchors, batch["bbox"], batch["bbox_valid"]),
+         n * anchors.shape[0] * 8),
         ("proposal_match",
          lambda: targets.proposal_match(cand, cvalid, batch["bbox"],
                                         batch["bbox_valid"], 0.5, 0.5, 0.0),
          lambda: targets.proposal_match_plain(cand, cvalid, batch["bbox"],
                                               batch["bbox_valid"], 0.5, 0.5,
-                                              0.0)),
+                                              0.0),
+         (cand, cvalid, batch["bbox"], batch["bbox_valid"]),
+         n * cand.shape[1] * 8),
     ):
         got, want = fn(), plain()
         torch.cuda.synchronize()
@@ -440,10 +515,186 @@ def check_train_kernels(torch, results):
         k9["max_abs_err"] += float(n_diff)
         k9["ms"] += ms
         k9["plain_ms"] += plain_ms
+        k9_bytes += nbytes(*ins, *got)
+        k9_flops += 12 * pairs  # an IoU per (box, gt) pair
+    k9.update(bound(k9_bytes, k9_flops))
     results["anchor_match"] = k9
 
 
+def stem_inputs(torch, n, dtype, seed=SEED):
+    """The stem's params (he_normal conv1 of ``init_extractor``, bn1 scale
+    and bias drawn around the init's 0.5 and 0) and a mean-subtracted
+    image-like (N, 832, 1344, 3) input, on the card in ``dtype``."""
+    from mask_rcnn_tpu_torch.models import resnet
+
+    gen = torch.Generator().manual_seed(seed)
+    w = resnet.init_extractor(gen)["conv1"]["W"]
+    params = {"conv1": {"W": w},
+              "bn1": {"scale": torch.rand(64, generator=gen) * 0.5 + 0.25,
+                      "bias": torch.randn(64, generator=gen) * 0.1}}
+    x = torch.rand((n, *TRAIN_HW, 3), generator=gen) * 255 - 120
+    dev = torch.device("cuda")
+    params = {k: {m: t.to(dev, dtype) for m, t in v.items()}
+              for k, v in params.items()}
+    return params, x.to(dev, dtype)
+
+
+def check_stem_kernel(torch, results):
+    """Phase 2, the stem: K10 against ``stem_forward_plain`` (the four-op
+    cuDNN stem it replaces) at (1, 832, 1344, 3) and (2, 832, 1344, 3),
+    bf16 and float32 (the plain side with TF32 off)."""
+    from mask_rcnn_tpu_torch.models import resnet
+
+    k10 = {"name": "stem_forward", "route": "cuda",
+           "source": "mask_rcnn_tpu_torch/csrc/stem.cu",
+           "replaces": "mask_rcnn_tpu/models/resnet.py:103",
+           "max_abs_err": 0.0}
+    for dtype in (torch.bfloat16, torch.float32):
+        for n in (1, 2):
+            params, x = stem_inputs(torch, n, dtype)
+            f32 = {k: {m: t.float() for m, t in v.items()}
+                   for k, v in params.items()}
+            got = resnet.stem_forward(params, x)
+            want = resnet.stem_forward_plain(f32, x.float())
+            torch.cuda.synchronize()
+            err = (got.float() - want).abs()
+            top = want.abs().max().item()
+            if dtype == torch.float32:
+                # float32 sums of 147 taps in another order: 1e-5 of the
+                # largest value
+                rtol, atol = 0.0, 1e-5 * top
+            else:
+                # one bf16 rounding of the float32 result, plus 1e-3 of the
+                # largest value
+                rtol, atol = 2.0 ** -8, 1e-3 * top
+            bad = (err > atol + rtol * want.abs()).sum().item()
+            ms = cuda_ms(torch, lambda: resnet.stem_forward(params, x))
+            plain_ms = cuda_ms(torch, lambda: resnet.stem_forward_plain(
+                params, x))
+            name = "bf16" if dtype == torch.bfloat16 else "f32"
+            print(f"K10 stem {tuple(x.shape)} {name} -> {tuple(got.shape)}: "
+                  f"max|err| {err.max().item():.3e} vs the float32 four-op "
+                  f"stem (rtol {rtol:g}, atol {atol:.3e}, {bad} outside), "
+                  f"kernel {ms:.4f} ms, four-op stem in {name} "
+                  f"{plain_ms:.4f} ms")
+            if bad:
+                raise AssertionError(f"K10 disagrees with the plain stem at "
+                                     f"{bad} values ({name}, batch {n})")
+            k10["max_abs_err"] = max(k10["max_abs_err"], err.max().item())
+            if dtype == torch.bfloat16 and n == 1:  # the serving shape
+                ch, cw = -(-TRAIN_HW[0] // 2), -(-TRAIN_HW[1] // 2)
+                k10.update(ms=ms, plain_ms=plain_ms, **bound(
+                    nbytes(x, params["conv1"]["W"], got),
+                    2 * n * ch * cw * 64 * 147, "bf16"))
+            elif dtype == torch.float32 and n == 1:
+                k10["f32_ms"], k10["f32_plain_ms"] = ms, plain_ms
+    results["stem_forward"] = k10
+
+
+FLAT_SPLIT = (1300, 700)  # ragged rois per image on the flat head path
+
+
+def ragged_rois(torch, rng, counts):
+    """Proposal-like flat rois of the 832x1344 bucket, ``counts[i]`` of
+    image i, shuffled together, and their int32 image indices."""
+    boxes = np.concatenate([proposal_like_boxes(rng, k, *TRAIN_HW)
+                            for k in counts])
+    idx = np.repeat(np.arange(len(counts), dtype=np.int32), counts)
+    perm = rng.permutation(len(idx))
+    dev = torch.device("cuda")
+    return (torch.from_numpy(boxes[perm]).to(dev),
+            torch.from_numpy(idx[perm]).to(dev))
+
+
+def check_flat_kernels(torch, results):
+    """Phase 2, the flat RoIAlign: K4 against ``roi_align_plain`` on
+    (1, 52, 84, 1024) bf16 with 1000 rois and on (2, 52, 84, 1024) with a
+    ragged 1300/700 split, 7x7 bins at bin_stride 2; K13 against the plain
+    backward from (1024, 7, 7, 1024) to (2, 52, 84, 1024)."""
+    from mask_rcnn_tpu_torch.ops import roi_align as ra
+
+    dev = torch.device("cuda")
+    rng = np.random.RandomState(SEED + 5)
+    fh, fw = TRAIN_HW[0] // 16, TRAIN_HW[1] // 16
+    args = (7, 1 / 16, 0, 2)
+    k4 = {"name": "roi_align", "route": "cuda",
+          "source": "mask_rcnn_tpu_torch/csrc/roi_align.cu",
+          "replaces": "mask_rcnn_tpu/ops/roi_align.py:149",
+          "max_abs_err": 0.0}
+    for counts in ((1000,), FLAT_SPLIT):
+        n = len(counts)
+        feats = torch.from_numpy(rng.randn(n, fh, fw, 1024).astype(
+            np.float32)).to(dev).bfloat16()
+        rois, idx = ragged_rois(torch, rng, counts)
+        got = ra.roi_align(feats, rois, idx, *args)
+        want = ra.roi_align_plain(feats.float(), rois, idx, *args)
+        torch.cuda.synchronize()
+        # one bf16 rounding of the float32 plain result (K1's tolerance)
+        err = (got.float() - want).abs()
+        bad = (err > 1e-5 + 2.0 ** -8 * want.abs()).sum().item()
+        ms = cuda_ms(torch, lambda: ra.roi_align(feats, rois, idx, *args))
+        plain_ms = cuda_ms(torch, lambda: ra.roi_align_plain(
+            feats.float(), rois, idx, *args), warmup=1, iters=3)
+        print(f"K4 roi_align (flat) {tuple(feats.shape)}, rois {counts}: "
+              f"max|err| {err.max().item():.3e} (rtol 2^-8, atol 1e-5, "
+              f"{bad} outside), kernel {ms:.4f} ms, plain f32 "
+              f"{plain_ms:.4f} ms")
+        if bad:
+            raise AssertionError(f"K4 disagrees with its plain version at "
+                                 f"{bad} values ({counts})")
+        k4["max_abs_err"] = max(k4["max_abs_err"], err.max().item())
+        if counts == FLAT_SPLIT:  # the flat head path's shape
+            k4.update(ms=ms, plain_ms=plain_ms, **bound(
+                nbytes(feats, rois, idx, got),
+                8 * 1024 * align_samples(rois.cpu().numpy(), (fh, fw))))
+    results["roi_align"] = k4
+
+    rois, idx = ragged_rois(torch, rng, (512, 512))
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    g = torch.randn((1024, 7, 7, 1024), generator=gen,
+                    device=dev).bfloat16()
+    shape = (2, fh, fw)
+    got = ra.roi_align_backward(g, rois, idx, shape, *args[1:])
+    want = ra.roi_align_backward_plain(g.float(), rois, idx, shape,
+                                       *args[1:])
+    torch.cuda.synchronize()
+    # K7's tolerance: one bf16 rounding plus 1e-5 of the largest value
+    atol = 1e-5 * want.abs().max().item()
+    err = (got.float() - want).abs()
+    bad = (err > atol + 2.0 ** -8 * want.abs()).sum().item()
+    ms = cuda_ms(torch, lambda: ra.roi_align_backward(g, rois, idx, shape,
+                                                      *args[1:]))
+    plain_ms = cuda_ms(torch, lambda: ra.roi_align_backward_plain(
+        g.float(), rois, idx, shape, *args[1:]), warmup=1, iters=3)
+    print(f"K13 roi_align backward (flat) {tuple(g.shape)} -> "
+          f"{tuple(got.shape)}: max|err| {err.max().item():.3e} (rtol 2^-8, "
+          f"atol {atol:.3e}, {bad} outside), contiguous NHWC "
+          f"{got.is_contiguous()}, kernel {ms:.4f} ms, plain f32 "
+          f"{plain_ms:.4f} ms")
+    if bad or not got.is_contiguous():
+        raise AssertionError(f"K13 disagrees with its plain version at {bad} "
+                             "values")
+    results["roi_align_backward"] = {
+        "name": "roi_align_backward", "route": "cuda",
+        "source": "mask_rcnn_tpu_torch/csrc/roi_align.cu",
+        "replaces": "mask_rcnn_tpu/ops/roi_align.py:189",
+        "max_abs_err": err.max().item(), "ms": ms, "plain_ms": plain_ms,
+        **bound(nbytes(g, rois, idx, got),
+                8 * 1024 * align_samples(rois.cpu().numpy(), (fh, fw)))}
+
+
 SERVE_ROIS = (1000, 100)  # the serving head passes' rois at batch 1
+
+
+def pool_reads(rois, p, scale=1 / 16, hw=(52, 84)):
+    """Feature positions that max RoI pooling reads for these flat rois:
+    the sum of its bins' areas (chainer's quantized bins)."""
+    from mask_rcnn_tpu_torch.ops import roi_align as ra
+
+    r = rois.float()
+    ys, ye = ra._pool_bounds(r[:, 0], r[:, 2], hw[0], p, scale)
+    xs, xe = ra._pool_bounds(r[:, 1], r[:, 3], hw[1], p, scale)
+    return float(((ye - ys)[:, :, None] * (xe - xs)[:, None, :]).sum())
 TRAIN_ROIS = 512  # sampled rois per image at batch 2
 
 
@@ -522,6 +773,10 @@ def check_pool_kernels(torch, results):
         if r == SERVE_ROIS[0]:  # the box pass's; the mask pass's is printed
             k5["ms"], k5["plain_ms"] = ms, plain_ms
             k6["ms"], k6["plain_ms"] = k6_ms, k6_plain_ms
+            io = nbytes(feats, args[0], args[1], got)
+            # four bilinear taps per output value; a compare per value read
+            k5.update(bound(io, 8 * got.numel()))
+            k6.update(bound(io, 1024 * pool_reads(args[0], 14)))
     results["crop_and_resize"], results["roi_pool"] = k5, k6
 
     # The backwards at the train shape: 2 images x 512 rois, 14x14 bins.
@@ -532,15 +787,17 @@ def check_pool_kernels(torch, results):
     g = torch.randn((n * TRAIN_ROIS, 14, 14, 1024), generator=gen,
                     device=dev).bfloat16()
     shape = (n, fh, fw)
-    for name, line, fn, plain in (
+    for name, line, fn, plain, io, flops in (
         ("crop_and_resize_backward", 359,
          lambda: ra.crop_and_resize_backward(g, rois, idx, shape, 1 / 16),
          lambda: ra.crop_and_resize_backward_plain(g.float(), rois, idx,
-                                                   shape, 1 / 16)),
+                                                   shape, 1 / 16),
+         (g, rois, idx), 8 * g.numel()),
         ("roi_pool_backward", 441,
          lambda: ra.roi_pool_backward(g, feats, rois, idx, 1 / 16),
          lambda: ra.roi_pool_backward_plain(g.float(), feats.float(), rois,
-                                            idx, 1 / 16)),
+                                            idx, 1 / 16),
+         (g, feats, rois, idx), 2 * 1024 * pool_reads(rois, 14)),
     ):
         got, want = fn(), plain()
         label = f"{'K11' if 'crop' in name else 'K12'} {name} " \
@@ -553,7 +810,8 @@ def check_pool_kernels(torch, results):
         plain_ms = cuda_ms(torch, plain, warmup=1, iters=2)
         print(f"{label}: kernel {ms:.4f} ms, plain f32 {plain_ms:.4f} ms")
         results[name] = entry(name, line)
-        results[name].update(max_abs_err=err, ms=ms, plain_ms=plain_ms)
+        results[name].update(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                             **bound(nbytes(*io, got), flops))
 
     # K12's tie rule: rois inside the zero block, where every position of a
     # bin ties; an integer gradient makes every weighted sum exact.
@@ -719,14 +977,329 @@ def drive_train_path(torch, kernels, pooling="align", reps=10):
           f"{ms:.3f} ms/step (CUDA events over {reps} steps after 3 warm-up), "
           f"{n * 1e3 / ms:.3f} img/s; host clock {host_ms:.3f} ms/step; "
           f"peak allocated {peak_gb:.2f} GiB")
+    stem_ab = time_stem_ab(torch, step, state, batch, reps) \
+        if pooling == "align" else None
     profile_train(torch, step, state, batch)
-    return counts, ms, host_ms, peak_gb
+    return counts, ms, host_ms, peak_gb, stem_ab
+
+
+def time_stem_ab(torch, step, state, batch, reps):
+    """The align train step with K10 and with the four-op stem it replaced
+    (``stem_forward_plain`` swapped in for ``resnet.stem_forward``), in the
+    order K10, four-op, four-op, K10, each after one warm-up step: CUDA
+    events and the host clock over ``reps`` steps. Shows how much of the
+    step's time the stem's choice moves."""
+    from mask_rcnn_tpu_torch.models import resnet
+
+    kernel = resnet.stem_forward
+    out = {"k10": [], "four_op": []}
+    try:
+        for name in ("k10", "four_op", "four_op", "k10"):
+            resnet.stem_forward = kernel if name == "k10" \
+                else resnet.stem_forward_plain
+            state, _ = step(state, batch, SEED)
+            torch.cuda.synchronize()
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            t0 = time.perf_counter()
+            start.record()
+            for _ in range(reps):
+                state, _ = step(state, batch, SEED)
+            end.record()
+            end.synchronize()
+            out[name].append({
+                "ms": start.elapsed_time(end) / reps,
+                "host_ms": (time.perf_counter() - t0) * 1e3 / reps})
+    finally:
+        resnet.stem_forward = kernel
+    for name, runs in out.items():
+        print(f"align train step with the {name} stem (K10, four-op, "
+              f"four-op, K10 order): " + ", ".join(
+                  f"{r['ms']:.3f} ms (host {r['host_ms']:.3f})" for r in runs)
+              + f" over {reps} steps each")
+    return out
+
+
+def drive_flat_head(torch, kernels):
+    """The flat head path: ``head_forward`` on flat rois with image indices
+    at full width (R-50 res5, 80 classes, bf16) on relu'd features of a
+    2-image 832x1344 batch, rois split 1300/700, forward and backward under
+    ``align``; returns the launch counts of that run. Then, with equal
+    counts, the flat head against the grouped one."""
+    from mask_rcnn_tpu_torch.models import heads
+    from mask_rcnn_tpu_torch.models.mask_rcnn import cast_params, map_params
+
+    dev = torch.device("cuda")
+    rng = np.random.RandomState(SEED + 6)
+    params = cast_params(map_params(
+        lambda t: t.to(dev), heads.init_head(
+            torch.Generator().manual_seed(SEED), N_CLASS_FG + 1)),
+        "bfloat16")
+    fh, fw = TRAIN_HW[0] // 16, TRAIN_HW[1] // 16
+    feats = torch.from_numpy(np.maximum(rng.randn(2, fh, fw, 1024), 0)
+                             .astype(np.float32)).to(dev).bfloat16()
+    rois, idx = ragged_rois(torch, rng, FLAT_SPLIT)
+
+    def run():
+        f = feats.detach().requires_grad_(True)
+        out = heads.head_forward(params, f, rois, roi_indices=idx)
+        loss = (out["cls_locs"].float().square().mean()
+                + torch.logsumexp(out["scores"].float(), -1).mean()
+                + torch.sigmoid(out["masks"].float()).mean())
+        loss.backward()
+        return out, f.grad
+
+    for wrapper in kernels:
+        wrapper.launches = 0
+    out, grad = run()
+    torch.cuda.synchronize()
+    counts = {w.__name__: w.launches for w in kernels}
+    for k, v in out.items():
+        assert torch.isfinite(v).all(), f"flat head: {k} not finite"
+    assert torch.isfinite(grad).all() and grad.abs().sum() > 0
+    require_launched(counts, "flat head path (align, rois 1300/700)")
+    ms = cuda_ms(torch, run, warmup=1, iters=5)
+    print(f"flat head forward+backward, {sum(FLAT_SPLIT)} rois "
+          f"{FLAT_SPLIT}, R-50 res5, bf16: {ms:.3f} ms (CUDA events); "
+          f"outputs {[(k, tuple(v.shape)) for k, v in out.items()]}")
+
+    # Equal counts: the flat head against the grouped head. K4 and K1 run
+    # the same device code on the same rois, so the pooled features must be
+    # bit-identical, and so must the head's outputs (the same torch ops on
+    # the same values; 1e-2 of the largest value should cuDNN pick another
+    # algorithm, bf16). K13 and K7 on the same pooled gradient differ by
+    # their atomics' order only, and each rounds its float32 sum to bf16
+    # once: one bf16 ulp (2^-7 relative) plus 1e-5 of the largest value.
+    # The features' gradients through the whole head add cuDNN's
+    # bf16 backward, whose summation order may change between calls: 1e-2
+    # of the largest value.
+    from mask_rcnn_tpu_torch.ops import roi_align as ra
+
+    grouped = torch.stack([ragged_rois(torch, rng, (1000,))[0]
+                           for _ in range(2)])
+    flat_rois = grouped.reshape(-1, 4)
+    flat_idx = torch.arange(2000, device=dev, dtype=torch.int32) // 1000
+    with torch.no_grad():
+        same = torch.equal(
+            ra.roi_align_grouped(feats, grouped, 7, 1 / 16, 0, 2).reshape(
+                2000, 7, 7, 1024),
+            ra.roi_align(feats, flat_rois, flat_idx, 7, 1 / 16, 0, 2))
+        gp = torch.randn((2000, 7, 7, 1024), device=dev).bfloat16()
+        g7 = ra.roi_align_grouped_backward(gp.reshape(2, 1000, 7, 7, 1024),
+                                           grouped, (fh, fw), 1 / 16, 0, 2)
+        g13 = ra.roi_align_backward(gp, flat_rois, flat_idx, (2, fh, fw),
+                                    1 / 16, 0, 2)
+        kerr = (g13.float() - g7.float()).abs()
+        kbad = (kerr > 1e-5 * g7.float().abs().max() + 2.0 ** -7
+                * g7.float().abs()).sum().item()
+    f1 = feats.detach().requires_grad_(True)
+    f2 = feats.detach().requires_grad_(True)
+    want = heads.head_forward(params, f1, grouped)
+    got = heads.head_forward(params, f2, flat_rois, roi_indices=flat_idx)
+    worst = 0.0
+    for k in want:
+        top = want[k].float().abs().max().item()
+        err = (got[k].float() - want[k].float()).abs().max().item()
+        worst = max(worst, err / top)
+    gy = [torch.randn(v.shape, device=dev).to(v.dtype) for v in want.values()]
+    (g1,) = torch.autograd.grad(list(want.values()), f1, gy)
+    (g2,) = torch.autograd.grad(list(got.values()), f2, gy)
+    gworst = ((g2.float() - g1.float()).abs().max()
+              / g1.float().abs().max()).item()
+    print(f"flat vs grouped, 1000 rois per image: pooled features identical="
+          f"{same}; K13 vs K7 on one pooled gradient max|err| "
+          f"{kerr.max().item():.3e} ({kbad} outside one bf16 ulp + 1e-5 of "
+          f"the largest); head outputs max|err| / max {worst:.3e}, "
+          f"features' grads through the head max|err| / max {gworst:.3e} "
+          "(tolerances 1e-2)")
+    assert same, "K4 and K1 pool differently on the same rois"
+    assert not kbad, "K13 and K7 disagree on the same gradient"
+    assert worst <= 1e-2, "flat head outputs differ from the grouped head's"
+    assert gworst <= 1e-2, "flat head gradients differ from grouped ones"
+    return counts, ms
+
+
+class TimedEvaluator:
+    """An evaluator that records its wall seconds per call (synchronised)."""
+
+    def __init__(self, torch, evaluator):
+        self.torch, self.evaluator, self.seconds = torch, evaluator, []
+
+    def __call__(self, model):
+        self.torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        report = self.evaluator(model)
+        self.torch.cuda.synchronize()
+        self.seconds.append(time.perf_counter() - t0)
+        return report
+
+
+LOOP_HW = (480, 640)  # the train loop's images, before resizing
+LOOP_SIZES = (800, 1333)  # its min_size / max_size
+
+
+def rectangles_dataset(rng, n, h, w):
+    """In-memory instance-segmentation examples (img uint8 HWC, bboxes,
+    labels, masks) built like tests/test_engine.py::make_dataset: noise
+    with 2-4 coloured rectangles of the 80 classes; all landscape."""
+    examples = []
+    for _ in range(n):
+        img = rng.randint(0, 100, (h, w, 3)).astype(np.uint8)
+        g = rng.randint(2, 5)
+        masks = np.zeros((g, h, w), np.int32)
+        boxes = []
+        for k in range(g):
+            y1, x1 = rng.randint(0, h * 3 // 4), rng.randint(0, w * 3 // 4)
+            y2 = y1 + rng.randint(h // 12, h // 4)
+            x2 = x1 + rng.randint(w // 12, w // 4)
+            img[y1:y2, x1:x2] = rng.randint(100, 256, 3)
+            masks[k, y1:y2, x1:x2] = 1
+            boxes.append((y1, x1, y2, x2))
+        examples.append((img, np.asarray(boxes, np.float32),
+                         rng.randint(0, N_CLASS_FG, g).astype(np.int32),
+                         masks))
+
+    class Dataset:
+        class_names = tuple(f"class{i}" for i in range(N_CLASS_FG))
+
+        def __len__(self):
+            return len(examples)
+
+        def __getitem__(self, i):
+            return examples[i]
+
+        def image_sizes(self):
+            return [(h, w)] * len(examples)
+
+    return Dataset()
+
+
+def read_log(out):
+    with open(os.path.join(out, "log")) as f:
+        return json.load(f)
+
+
+def drive_train_loop(torch, kernels):
+    """The train loop at full width: ``train()`` with R-50-C4, 80
+    classes, anchor scales (2, 4, 8, 16, 32), min 800 / max 1333, bf16 with
+    float32 masters, batch 2, on 16 in-memory 480x640 images (resized to
+    800x1067 in the 832x1344 bucket, 8 steps an epoch) and 4 val images;
+    COCO evaluation, checkpoint and log every 4 steps. Run A stops at step
+    4; run B resumes from A's checkpoint and runs to step 8. Returns the
+    launch counts of both runs, ms per step and eval s per image."""
+    import tempfile
+
+    from mask_rcnn_tpu_torch.data import MaskRCNNTransform, TrainLoader
+    from mask_rcnn_tpu_torch.engine import trainer
+    from mask_rcnn_tpu_torch.engine.evaluator import (
+        InstanceSegmentationEvaluator,
+    )
+    from mask_rcnn_tpu_torch.engine.loop import train
+    from mask_rcnn_tpu_torch.models.mask_rcnn import (
+        MaskRCNNConfig,
+        init_params,
+    )
+    from mask_rcnn_tpu_torch.utils import checkpoint
+
+    dev = torch.device("cuda")
+    rng = np.random.RandomState(SEED + 7)
+    train_ds = rectangles_dataset(rng, 16, *LOOP_HW)
+    val_ds = rectangles_dataset(rng, 4, *LOOP_HW)
+    lo, hi = LOOP_SIZES
+    cfg = MaskRCNNConfig(n_fg_class=N_CLASS_FG, min_size=lo, max_size=hi,
+                         anchor_scales=(2, 4, 8, 16, 32),
+                         compute_dtype="bfloat16")
+
+    def loader():
+        return TrainLoader(train_ds, MaskRCNNTransform(
+            lo, hi, cfg.mean, train=True, rng=np.random.RandomState(SEED)),
+            batch_size=2, max_boxes=8, min_size=lo, max_size=hi, seed=SEED)
+
+    ev = TimedEvaluator(torch, InstanceSegmentationEvaluator(
+        val_ds, val_ds.class_names, kind="coco", batch_size=2))
+    kw = dict(max_epoch=1.0, evaluator=ev, eval_interval_epochs=0.5,
+              log_interval=4, checkpoint_interval_steps=4, seed=SEED,
+              device=dev)
+    assert loader().steps_per_epoch() == 8
+    assert loader().position_for_step(4) == (0, 4)
+    for wrapper in kernels:
+        wrapper.launches = 0
+    with tempfile.TemporaryDirectory(prefix="mrcnn_train_") as tmp:
+        run_a, run_b = os.path.join(tmp, "a"), os.path.join(tmp, "b")
+        t0 = time.perf_counter()
+        res_a = train(cfg, loader(), run_a, stop_at_step=4, **kw)
+        t_a = time.perf_counter() - t0
+        assert res_a["iterations"] == 4, res_a
+
+        # The step-4 checkpoint restores bit for bit: against the arrays
+        # in its file, and its params against the snapshot that the step-4
+        # evaluation wrote from the in-memory state.
+        state_dir = os.path.join(run_a, "train_state")
+        params = init_params(cfg, torch.Generator().manual_seed(SEED), dev)
+        opt, _ = trainer.make_optimizer(params, 0.0025, 8)
+        restored = checkpoint.restore_train_state(
+            state_dir, trainer.create_train_state(params, opt))
+        assert restored.step == 4
+        saved = dict(np.load(os.path.join(state_dir, "state.npz")))
+        p_np, m_np, _ = checkpoint.train_state_to_numpy(restored)
+        snap = dict(np.load(os.path.join(run_a, "snapshot_model.npz")))
+        for k, v in p_np.items():
+            assert np.array_equal(v, saved[f"params/{k}"]), k
+            assert np.array_equal(v, snap[k]), k
+        for k, v in m_np.items():
+            assert np.array_equal(v, saved[f"momentum/{k}"]), k
+        print(f"step-4 checkpoint restored bit for bit: {len(p_np)} params, "
+              f"{len(m_np)} momentum leaves; resume position "
+              f"{loader().position_for_step(4)} (epoch, skip)")
+        del params, opt, restored
+
+        t0 = time.perf_counter()
+        res_b = train(cfg, loader(), run_b, resume_from=state_dir, **kw)
+        t_b = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        counts = {w.__name__: w.launches for w in kernels}
+        assert res_b["iterations"] == 8, res_b
+        log_a, log_b = read_log(run_a), read_log(run_b)
+        for run in (run_a, run_b):
+            for name in ("log", "params.yaml", "snapshot_model.npz"):
+                assert os.path.exists(os.path.join(run, name)), name
+    losses = [e for e in log_a + log_b if "main/loss" in e]
+    reports = [e for e in log_a + log_b if "validation/main/map" in e]
+    assert [e["iteration"] for e in losses] == [4, 8], losses
+    assert [e["iteration"] for e in reports] == [4, 8], reports
+    for e in losses:
+        for k, v in e.items():
+            if k.startswith("main/"):
+                assert np.isfinite(v), f"{k} at step {e['iteration']}: {v}"
+    require_launched(counts, "train loop (train(), resume, eval)")
+    # ms/step: the log's elapsed time at its entry over the 4 steps it
+    # covers (run A's includes the first step's warm-up)
+    ms_a = losses[0]["elapsed_time"] * 1e3 / 4
+    ms_b = losses[1]["elapsed_time"] * 1e3 / 4
+    eval_s_img = [t / len(val_ds) for t in ev.seconds]
+    print(f"train loop, b2 832x1344 bf16 R-50-C4 COCO: {ms_a:.3f} "
+          f"ms/step over steps 1-4 (run A, with warm-up), {ms_b:.3f} ms/step "
+          f"over steps 5-8 (run B, resumed); COCO eval "
+          f"{[round(x, 4) for x in eval_s_img]} s/img (4 val images each); "
+          f"run A {t_a:.2f} s, run B {t_b:.2f} s wall")
+    for e in losses:
+        print("  losses at step", e["iteration"], {
+            k: round(v, 5) for k, v in e.items() if k.startswith("main/")})
+    for e in reports:
+        print("  report at step", e["iteration"], {
+            k: v for k, v in e.items()
+            if k.startswith("validation/main/map")})
+    return counts, {"loop_ms_per_step_b2": ms_b,
+                    "loop_ms_per_step_b2_first4": ms_a,
+                    "eval_s_per_img": eval_s_img,
+                    "map": [e["validation/main/map"] for e in reports]}
 
 
 def kernel_group(name):
     """Coarse family of a CUDA kernel's name, for the profile's table."""
     low = name.lower()
     for group, keys in (
+        ("K10 stem", ("stem_kernel",)),
         ("K1 roi_align fwd", ("roi_align_fwd",)),
         ("K7 roi_align bwd", ("roi_align_bwd",)),
         ("K5 crop_resize fwd", ("crop_resize_fwd",)),
@@ -801,6 +1374,7 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
+    from mask_rcnn_tpu_torch.models import resnet
     from mask_rcnn_tpu_torch.models.mask_rcnn import set_float32_precision
     from mask_rcnn_tpu_torch.ops import _kernels, nms, roi_align, targets
 
@@ -823,6 +1397,8 @@ def main() -> int:
     check_kernels(torch, results)
     check_train_kernels(torch, results)
     check_pool_kernels(torch, results)
+    check_stem_kernel(torch, results)
+    check_flat_kernels(torch, results)
     for pooling in POOLERS:
         check_small_reference(torch, pooling)
         check_train_reference(torch, pooling)
@@ -843,32 +1419,47 @@ def main() -> int:
 
     for pooling in POOLERS:
         counts, ms_img, step_ms = drive_main_path(
-            torch, (pool_fwd[pooling], nms.nms_blocked, nms.nms_small),
-            pooling)
+            torch, (resnet.stem_forward, pool_fwd[pooling], nms.nms_blocked,
+                    nms.nms_small), pooling)
         count(counts)
         serving[pooling] = {"predict_ms_per_img_b1": ms_img,
                             "predict_submit_ms_per_img_b1": step_ms}
     for pooling in POOLERS:
-        counts, ms, host_ms, peak_gb = drive_train_path(
-            torch, (pool_fwd[pooling], nms.nms_blocked, pool_bwd[pooling],
-                    targets.mask_crop_resize, targets.anchor_match,
-                    targets.proposal_match),
+        counts, ms, host_ms, peak_gb, stem_ab = drive_train_path(
+            torch, (resnet.stem_forward, pool_fwd[pooling], nms.nms_blocked,
+                    pool_bwd[pooling], targets.mask_crop_resize,
+                    targets.anchor_match, targets.proposal_match),
             pooling, reps=10 if pooling == "align" else 5)
         count(counts)
         training[pooling] = {"train_ms_per_step_b2": ms,
                              "train_img_per_s_b2": 2e3 / ms,
                              "train_host_ms_per_step_b2": host_ms,
                              "train_peak_gib": peak_gb, "launches": counts}
+        if stem_ab:
+            training[pooling]["stem_ab"] = stem_ab
+    counts, flat_ms = drive_flat_head(
+        torch, (roi_align.roi_align, roi_align.roi_align_backward))
+    count(counts)
+    counts, loop = drive_train_loop(
+        torch, (resnet.stem_forward, roi_align.roi_align_grouped,
+                nms.nms_blocked, nms.nms_small,
+                roi_align.roi_align_grouped_backward,
+                targets.mask_crop_resize, targets.anchor_match,
+                targets.proposal_match))
+    count(counts)
+    loop["launches"] = counts
     launches["anchor_match"] += launches.pop("proposal_match")
     for name, entry in results.items():
         entry["launches"] = launches[name]
 
     print(json.dumps({"serving": serving, "training": training,
+                      "flat_head_ms_fwd_bwd": flat_ms, "train_loop": loop,
                       "card": smi}))
     order = ("roi_align_grouped", "nms_blocked", "nms_small",
              "roi_align_grouped_backward", "mask_crop_resize", "anchor_match",
              "crop_and_resize", "crop_and_resize_backward", "roi_pool",
-             "roi_pool_backward")
+             "roi_pool_backward", "stem_forward", "roi_align",
+             "roi_align_backward")
     print(json.dumps({"kernels": [results[k] for k in order]}))
     print(nvidia_smi())
     print(json.dumps({"ok": True, "device": {

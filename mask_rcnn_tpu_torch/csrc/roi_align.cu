@@ -27,6 +27,16 @@
 // order follows the atomics' order, so the last bits vary from run to run;
 // the wrapper casts the buffer to the feature type at the end.
 //
+// K4 and K13 are the same two kernels on flat rois (R, 4) with a per-roi
+// image index (R,) int32: K4 replaces mask_rcnn_tpu/ops/roi_align.py::
+// roi_align (lines 149-232, the separable matrices with the index * H row
+// offset), K13 the autodiff transpose of its einsums. The grouped launch
+// passes a null index and the image is roi / R; the flat launch reads the
+// image from the index, which its wrapper has checked to lie in [0, N) (the
+// kernels also skip any other value, so they never read or write outside
+// the features). Same bounds, same design: one block per roi and channel
+// tile, so a roi's image changes nothing of the per-thread work.
+//
 // Semantics reproduced exactly (mask_rcnn_tpu/ops/roi_align.py:22-27,
 // 113-134):
 //   * rois are read as f32 whatever the feature type;
@@ -113,6 +123,12 @@ __device__ __forceinline__ RoiGeom roi_geom(const float* box,
   return g;
 }
 
+// The image of a roi: its index in the flat form (K4/K13), else the row of
+// the grouped (N, R) layout (K1/K7).
+__device__ __forceinline__ int image_of(int roi, const int* roi_idx, int R) {
+  return roi_idx ? roi_idx[roi] : roi / R;
+}
+
 // Origin of bin p (of the computed ones) along one axis.
 __device__ __forceinline__ float bin_origin(float start, int p, int bin_stride,
                                             float bin) {
@@ -127,18 +143,23 @@ __device__ __forceinline__ float sample_at(float origin, int k, float step) {
 template <typename T>
 __global__ void roi_align_fwd_kernel(const T* __restrict__ feats,
                                      const float* __restrict__ rois,
-                                     T* __restrict__ out, int R, int H, int W,
-                                     int C, int P, float spatial_scale,
+                                     const int* __restrict__ roi_idx,
+                                     T* __restrict__ out, int N, int R, int H,
+                                     int W, int C, int P, float spatial_scale,
                                      int sampling_ratio, int bin_stride) {
-  const int roi = blockIdx.x;  // image * R + r
+  const int roi = blockIdx.x;  // grouped: image * R + r; flat: r
   const int c = blockIdx.y * blockDim.x + threadIdx.x;
   if (c >= C) return;
-  const int n = roi / R;
+  const int n = image_of(roi, roi_idx, R);
+  T* o = out + (size_t)roi * P * P * C + c;
+  if (n < 0 || n >= N) {  // the wrapper refuses such an index; never read
+    for (int i = 0; i < P * P; ++i) store_f(o + (size_t)i * C, 0.0f);
+    return;
+  }
   const RoiGeom g = roi_geom(rois + (size_t)roi * 4, spatial_scale, P,
                              bin_stride, sampling_ratio, H, W);
 
   const T* f = feats + (size_t)n * H * W * C + c;
-  T* o = out + (size_t)roi * P * P * C + c;
 
   for (int ph = 0; ph < P; ++ph) {
     const float y0 = bin_origin(g.start_y, ph, bin_stride, g.bin_y);
@@ -173,14 +194,16 @@ __device__ __forceinline__ void scatter(float* p, float v) {
 template <typename T>
 __global__ void roi_align_bwd_kernel(const T* __restrict__ grad_out,
                                      const float* __restrict__ rois,
-                                     float* __restrict__ grad_feats, int R,
-                                     int H, int W, int C, int P,
+                                     const int* __restrict__ roi_idx,
+                                     float* __restrict__ grad_feats, int N,
+                                     int R, int H, int W, int C, int P,
                                      float spatial_scale, int sampling_ratio,
                                      int bin_stride) {
-  const int roi = blockIdx.x;  // image * R + r
+  const int roi = blockIdx.x;  // grouped: image * R + r; flat: r
   const int c = blockIdx.y * blockDim.x + threadIdx.x;
   if (c >= C) return;
-  const int n = roi / R;
+  const int n = image_of(roi, roi_idx, R);
+  if (n < 0 || n >= N) return;  // refused by the wrapper; never written
   const RoiGeom g = roi_geom(rois + (size_t)roi * 4, spatial_scale, P,
                              bin_stride, sampling_ratio, H, W);
 
@@ -214,35 +237,83 @@ __global__ void roi_align_bwd_kernel(const T* __restrict__ grad_out,
   }
 }
 
-}  // namespace
-
-// feats (N, H, W, C) contiguous, dtype 0 = float32, 1 = bfloat16;
-// rois (N, R, 4) float32 contiguous; out (N, R, P, P, C) of the feature type.
-// Returns a cudaError_t (0 on success).
-extern "C" int mrcnn_roi_align_fwd(const void* feats, const float* rois,
-                                   void* out, int dtype, int N, int R, int H,
-                                   int W, int C, int P, float spatial_scale,
-                                   int sampling_ratio, int bin_stride,
-                                   void* stream) {
-  if (N * R == 0 || C == 0) return 0;
+template <typename T>
+void launch_fwd(const void* feats, const float* rois, const int* roi_idx,
+                void* out, int N, int R, int blocks, int H, int W, int C,
+                int P, float spatial_scale, int sampling_ratio,
+                int bin_stride, cudaStream_t s) {
   const int threads = C >= 256 ? 256 : ((C + 31) / 32) * 32;
-  const dim3 grid(N * R, (C + threads - 1) / threads);
+  const dim3 grid(blocks, (C + threads - 1) / threads);
+  roi_align_fwd_kernel<T><<<grid, threads, 0, s>>>(
+      (const T*)feats, rois, roi_idx, (T*)out, N, R, H, W, C, P,
+      spatial_scale, sampling_ratio, bin_stride);
+}
+
+template <typename T>
+void launch_bwd(const void* grad_out, const float* rois, const int* roi_idx,
+                float* grad_feats, int N, int R, int blocks, int H, int W,
+                int C, int P, float spatial_scale, int sampling_ratio,
+                int bin_stride, cudaStream_t s) {
+  const int threads = C >= 256 ? 256 : ((C + 31) / 32) * 32;
+  const dim3 grid(blocks, (C + threads - 1) / threads);
+  roi_align_bwd_kernel<T><<<grid, threads, 0, s>>>(
+      (const T*)grad_out, rois, roi_idx, grad_feats, N, R, H, W, C, P,
+      spatial_scale, sampling_ratio, bin_stride);
+}
+
+int fwd(const void* feats, const float* rois, const int* roi_idx, void* out,
+        int dtype, int N, int R, int blocks, int H, int W, int C, int P,
+        float spatial_scale, int sampling_ratio, int bin_stride,
+        void* stream) {
+  if (blocks == 0 || C == 0) return 0;
   cudaStream_t s = (cudaStream_t)stream;
   if (dtype == 0) {
-    roi_align_fwd_kernel<float><<<grid, threads, 0, s>>>(
-        (const float*)feats, rois, (float*)out, R, H, W, C, P, spatial_scale,
-        sampling_ratio, bin_stride);
+    launch_fwd<float>(feats, rois, roi_idx, out, N, R, blocks, H, W, C, P,
+                      spatial_scale, sampling_ratio, bin_stride, s);
   } else if (dtype == 1) {
-    roi_align_fwd_kernel<__nv_bfloat16><<<grid, threads, 0, s>>>(
-        (const __nv_bfloat16*)feats, rois, (__nv_bfloat16*)out, R, H, W, C, P,
-        spatial_scale, sampling_ratio, bin_stride);
+    launch_fwd<__nv_bfloat16>(feats, rois, roi_idx, out, N, R, blocks, H, W,
+                              C, P, spatial_scale, sampling_ratio, bin_stride,
+                              s);
   } else {
     return (int)cudaErrorInvalidValue;
   }
   return (int)cudaGetLastError();
 }
 
-// grad_out (N, R, P, P, C) contiguous, dtype 0 = float32, 1 = bfloat16;
+int bwd(const void* grad_out, const float* rois, const int* roi_idx,
+        float* grad_feats, int dtype, int N, int R, int blocks, int H, int W,
+        int C, int P, float spatial_scale, int sampling_ratio, int bin_stride,
+        void* stream) {
+  if (blocks == 0 || C == 0) return 0;
+  cudaStream_t s = (cudaStream_t)stream;
+  if (dtype == 0) {
+    launch_bwd<float>(grad_out, rois, roi_idx, grad_feats, N, R, blocks, H,
+                      W, C, P, spatial_scale, sampling_ratio, bin_stride, s);
+  } else if (dtype == 1) {
+    launch_bwd<__nv_bfloat16>(grad_out, rois, roi_idx, grad_feats, N, R,
+                              blocks, H, W, C, P, spatial_scale,
+                              sampling_ratio, bin_stride, s);
+  } else {
+    return (int)cudaErrorInvalidValue;
+  }
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// K1: feats (N, H, W, C) contiguous, dtype 0 = float32, 1 = bfloat16; rois
+// (N, R, 4) float32 contiguous; out (N, R, P, P, C) of the feature type.
+// Returns a cudaError_t (0 on success).
+extern "C" int mrcnn_roi_align_fwd(const void* feats, const float* rois,
+                                   void* out, int dtype, int N, int R, int H,
+                                   int W, int C, int P, float spatial_scale,
+                                   int sampling_ratio, int bin_stride,
+                                   void* stream) {
+  return fwd(feats, rois, nullptr, out, dtype, N, R, N * R, H, W, C, P,
+             spatial_scale, sampling_ratio, bin_stride, stream);
+}
+
+// K7: grad_out (N, R, P, P, C) contiguous, dtype 0 = float32, 1 = bfloat16;
 // rois (N, R, 4) float32; grad_feats (N, H, W, C) float32, zeroed by the
 // caller, accumulated into. Returns a cudaError_t (0 on success).
 extern "C" int mrcnn_roi_align_bwd(const void* grad_out, const float* rois,
@@ -250,20 +321,31 @@ extern "C" int mrcnn_roi_align_bwd(const void* grad_out, const float* rois,
                                    int H, int W, int C, int P,
                                    float spatial_scale, int sampling_ratio,
                                    int bin_stride, void* stream) {
-  if (N * R == 0 || C == 0) return 0;
-  const int threads = C >= 256 ? 256 : ((C + 31) / 32) * 32;
-  const dim3 grid(N * R, (C + threads - 1) / threads);
-  cudaStream_t s = (cudaStream_t)stream;
-  if (dtype == 0) {
-    roi_align_bwd_kernel<float><<<grid, threads, 0, s>>>(
-        (const float*)grad_out, rois, grad_feats, R, H, W, C, P,
-        spatial_scale, sampling_ratio, bin_stride);
-  } else if (dtype == 1) {
-    roi_align_bwd_kernel<__nv_bfloat16><<<grid, threads, 0, s>>>(
-        (const __nv_bfloat16*)grad_out, rois, grad_feats, R, H, W, C, P,
-        spatial_scale, sampling_ratio, bin_stride);
-  } else {
-    return (int)cudaErrorInvalidValue;
-  }
-  return (int)cudaGetLastError();
+  return bwd(grad_out, rois, nullptr, grad_feats, dtype, N, R, N * R, H, W,
+             C, P, spatial_scale, sampling_ratio, bin_stride, stream);
+}
+
+// K4: the flat form. rois (R, 4) float32 and roi_idx (R,) int32 in [0, N)
+// (checked by the wrapper), both contiguous; out (R, P, P, C).
+extern "C" int mrcnn_roi_align_flat_fwd(const void* feats, const float* rois,
+                                        const int* roi_idx, void* out,
+                                        int dtype, int N, int R, int H, int W,
+                                        int C, int P, float spatial_scale,
+                                        int sampling_ratio, int bin_stride,
+                                        void* stream) {
+  return fwd(feats, rois, roi_idx, out, dtype, N, R, R, H, W, C, P,
+             spatial_scale, sampling_ratio, bin_stride, stream);
+}
+
+// K13: the flat form's backward. grad_out (R, P, P, C); rois and roi_idx as
+// for K4; grad_feats (N, H, W, C) float32, zeroed, accumulated into.
+extern "C" int mrcnn_roi_align_flat_bwd(const void* grad_out,
+                                        const float* rois, const int* roi_idx,
+                                        float* grad_feats, int dtype, int N,
+                                        int R, int H, int W, int C, int P,
+                                        float spatial_scale,
+                                        int sampling_ratio, int bin_stride,
+                                        void* stream) {
+  return bwd(grad_out, rois, roi_idx, grad_feats, dtype, N, R, R, H, W, C, P,
+             spatial_scale, sampling_ratio, bin_stride, stream);
 }

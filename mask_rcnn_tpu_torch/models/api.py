@@ -47,7 +47,9 @@ class MaskRCNNResNet:
     labels (R,) 0-based, scores (R,))``. ``pad_to_bucket`` (default True)
     pads to the static orientation buckets of ``data/loader.bucket_shape``.
     ``pretrained_model`` is an npz in the parameter bridge's layout (what
-    either package's ``save_params`` writes).
+    either package's ``save_params`` writes). The model runs on the card
+    unless ``device`` says otherwise (``device="cpu"`` for the plain
+    versions of every kernel).
     """
 
     def __init__(
@@ -67,7 +69,7 @@ class MaskRCNNResNet:
         compute_dtype: str = "float32",
         pad_to_bucket: bool = True,
         uint8_input: bool = False,
-        device="cpu",
+        device="cuda",
     ):
         if n_fg_class is None:
             raise ValueError("n_fg_class is required")
@@ -225,19 +227,28 @@ class MaskRCNNResNet:
                List[np.ndarray]]:
         """Wait for a :meth:`predict_submit` handle, then apply the score
         threshold and paste the masks at full resolution on the host."""
+        bboxes, probs, labels, scores, sizes = self.predict_collect_raw(
+            handle)
+        masks = [paste_masks(b, p, *size)
+                 for b, p, size in zip(bboxes, probs, sizes)]
+        return bboxes, masks, labels, scores
+
+    def predict_collect_raw(self, handle):
+        """Wait for a :meth:`predict_submit` handle without pasting masks:
+        per image ``(bboxes, mask_probs (R, M, M), labels, scores)`` after
+        the score threshold, and the original sizes. Evaluation scores these
+        box-locally (``add_boxlocal``), skipping the full-resolution paste
+        (mask_rcnn_tpu/models/api.py:358-377)."""
         out, sizes, n = handle
         out = {k: v.cpu().numpy() for k, v in out.items()}
-        bboxes, masks, labels, scores = [], [], [], []
+        bboxes, probs, labels, scores = [], [], [], []
         for i in range(n):
             valid = out["valid"][i] & (out["scores"][i] >= self.score_thresh)
-            bbox = out["boxes"][i][valid].astype(np.float32)
-            im_h, im_w = sizes[i]
-            masks.append(paste_masks(bbox, out["mask_probs"][i][valid],
-                                     im_h, im_w))
-            bboxes.append(bbox)
+            bboxes.append(out["boxes"][i][valid].astype(np.float32))
             labels.append(out["labels"][i][valid].astype(np.int32))
             scores.append(out["scores"][i][valid].astype(np.float32))
-        return bboxes, masks, labels, scores
+            probs.append(out["mask_probs"][i][valid].astype(np.float32))
+        return bboxes, probs, labels, scores, sizes[:n]
 
     def predict(self, imgs: Sequence[np.ndarray]):
         return self.predict_collect(self.predict_submit(imgs))

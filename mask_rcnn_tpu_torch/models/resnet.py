@@ -7,9 +7,11 @@ which for a contiguous NHWC tensor is an NCHW tensor in
 ``torch.channels_last`` memory format, and returns the NHWC view of its
 channels-last output: no layout copy on either side.
 
-  * conv1 7x7/2 pad 3 -> affine -> relu -> maxpool 3x3/2 **pad 1**, as a
-    plain direct conv (the JAX package's space-to-depth rewrite equals it to
-    ~1e-7 relative in f32, mask_rcnn_tpu/models/resnet.py:103-150);
+  * the stem, conv1 7x7/2 pad 3 -> affine -> relu -> maxpool 3x3/2
+    **pad 1** (:func:`stem_forward`): kernel K10 (``csrc/stem.cu``, one fused
+    pass) on CUDA tensors, four torch ops on CPU tensors; the JAX package's
+    space-to-depth rewrite equals the direct conv to ~1e-7 relative in f32
+    (mask_rcnn_tpu/models/resnet.py:103-150);
   * res2 (stride 1), res3 (stride 2), res4 (stride 2) -> stride-16 C4
     features; res5 runs in the RoI head;
   * caffe/chainer bottleneck: the stride sits on the 1x1 ``conv1`` and the
@@ -23,11 +25,14 @@ JAX package's HWIO).
 
 from __future__ import annotations
 
+import contextlib
 import functools
 
 import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
+
+from mask_rcnn_tpu_torch.ops import _kernels
 
 RESNET_N_BLOCKS = {50: (3, 4, 6, 3), 101: (3, 4, 23, 3)}
 
@@ -66,11 +71,80 @@ def max_pool_3x3_s2_p1(x):
     return nhwc(F.max_pool2d(nchw(x), kernel_size=3, stride=2, padding=1))
 
 
-def stem_forward(params, x):
-    """conv1 7x7/2 pad3 -> affine -> relu -> maxpool 3x3/2 pad1."""
+def stem_forward_plain(params, x):
+    """conv1 7x7/2 pad3 -> affine -> relu -> maxpool 3x3/2 pad1, as four
+    torch ops: x (N, H, W, 3) -> (N, ceil(H/4), ceil(W/4), 64) NHWC."""
     h = conv2d(x, params["conv1"]["W"], stride=2, padding=3)
     h = torch.relu(affine(h, params["bn1"]))
     return max_pool_3x3_s2_p1(h)
+
+
+_STEM_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def stem_wants_grad(params, x) -> bool:
+    """Whether autograd would need the stem's gradient: grad mode is on and
+    the input or a stem parameter requires grad. K10 has no backward (conv1
+    and bn1 are frozen in every configuration and ``extractor_forward`` cuts
+    the gradient after res2), so :func:`stem_forward` refuses such a call on
+    a CUDA tensor."""
+    if not torch.is_grad_enabled():
+        return False
+    return any(t.requires_grad for t in (
+        x, params["conv1"]["W"], params["bn1"]["scale"],
+        params["bn1"]["bias"]))
+
+
+def stem_forward(params, x):
+    """The stem, conv1 7x7/2 pad3 -> affine -> relu -> maxpool 3x3/2 pad1:
+    x (N, H, W, 3) -> (N, ceil(H/4), ceil(W/4), 64) NHWC, any H and W.
+
+    A CPU tensor takes :func:`stem_forward_plain`; a CUDA tensor (contiguous
+    NHWC, float32 or bfloat16, with the params of the same type) takes
+    kernel K10, which sums the conv in float32, applies the affine and relu
+    in float32 and rounds the pooled result once. K10 has no backward: with
+    gradients wanted (:func:`stem_wants_grad`) the call raises."""
+    if x.device.type == "cpu":
+        return stem_forward_plain(params, x)
+    if stem_wants_grad(params, x):
+        raise RuntimeError(
+            "stem_forward: kernel K10 has no backward; the stem is frozen "
+            "(run it under torch.no_grad() or with parameters that do not "
+            "require grad)")
+    if x.dim() != 4 or x.shape[-1] != 3 or not x.is_contiguous() \
+            or x.dtype not in _STEM_DTYPES:
+        raise ValueError("stem_forward: x must be a contiguous (N, H, W, 3) "
+                         f"float32 or bfloat16 tensor, got {tuple(x.shape)} "
+                         f"{x.dtype}")
+    w = params["conv1"]["W"]
+    scale, bias = params["bn1"]["scale"], params["bn1"]["bias"]
+    if tuple(w.shape) != (64, 3, 7, 7) or scale.numel() != 64 \
+            or bias.numel() != 64:
+        raise ValueError(f"stem_forward: conv1/W must be (64, 3, 7, 7) and "
+                         f"bn1 scale/bias 64 values, got {tuple(w.shape)}, "
+                         f"{scale.numel()}, {bias.numel()}")
+    for name, t in (("conv1/W", w), ("bn1/scale", scale), ("bn1/bias", bias)):
+        if t.device != x.device:
+            raise ValueError(f"stem_forward: {name} is on {t.device}, "
+                             f"x on {x.device}")
+    n, h, wd, _ = x.shape
+    # (ky, kx, c, o) rows of float32, the layout the kernel stages in
+    # shared memory
+    wk = w.detach().permute(2, 3, 1, 0).reshape(147, 64).float().contiguous()
+    scale = scale.detach().float().contiguous()
+    bias = bias.detach().float().contiguous()
+    ph, pw = (h + 3) // 4, (wd + 3) // 4
+    out = torch.empty((n, ph, pw, 64), dtype=x.dtype, device=x.device)
+    err = _kernels.lib().mrcnn_stem_fwd(
+        x.data_ptr(), wk.data_ptr(), scale.data_ptr(), bias.data_ptr(),
+        out.data_ptr(), _STEM_DTYPES[x.dtype], n, h, wd,
+        _kernels.stream_ptr(x.device))
+    _kernels.check(err, "mrcnn_stem_fwd")
+    stem_forward.launches += 1
+    return out
+
+
+stem_forward.launches = 0
 
 
 def bottleneck(params, x, stride=1, projection=False):
@@ -105,7 +179,11 @@ def extractor_forward(params, x, n_layers=50, freeze_at="res2",
     the backward pass (``torch.utils.checkpoint``) instead of keeping them.
     """
     blocks = RESNET_N_BLOCKS[n_layers]
-    h = stem_forward(params, x)
+    # With the cut right after res2 no gradient reaches the stem: run it
+    # without autograd (its kernel, K10, has none).
+    cut = train and freeze_at == "res2"
+    with torch.no_grad() if cut else contextlib.nullcontext():
+        h = stem_forward(params, x)
     for i, stage in enumerate(["res2", "res3", "res4"]):
         fn = functools.partial(building_block, params[stage],
                                n_blocks=blocks[i],

@@ -22,7 +22,7 @@ from pathlib import Path
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-SOURCES = ("roi_align.cu", "nms.cu", "targets.cu", "roi_pool.cu")
+SOURCES = ("roi_align.cu", "nms.cu", "targets.cu", "roi_pool.cu", "stem.cu")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas=-v",
@@ -34,6 +34,14 @@ _SIGNATURES = {
                             _I, _P),
     "mrcnn_roi_align_bwd": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _I,
                             _I, _P),
+    # (feats/grad, rois, roi_idx, out/grad_feats, dtype, N, R, H, W, C, P,
+    #  spatial_scale, sampling_ratio, bin_stride, stream)
+    "mrcnn_roi_align_flat_fwd": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                                 _F, _I, _I, _P),
+    "mrcnn_roi_align_flat_bwd": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                                 _F, _I, _I, _P),
+    # (x, w, scale, bias, out, dtype, N, H, W, stream)
+    "mrcnn_stem_fwd": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
     "mrcnn_anchor_match": (_P, _P, _P, _P, _I, _I, _I, _F, _F, _F, _F, _P, _P,
                            _P),
     "mrcnn_proposal_match": (_P, _P, _P, _P, _I, _I, _I, _F, _F, _F, _P, _P,

@@ -1,9 +1,9 @@
 """The RoI poolers and their gradients, the port of
 ``mask_rcnn_tpu/ops/roi_align.py``: Detectron RoIAlign on per-image rois
 (``roi_align_grouped``, kernels K1/K7), and on flat rois with per-roi batch
-indices the integer-crop bilinear resize (``crop_and_resize``, K5/K11) and
-quantized max RoI pooling (``roi_pool``, K6/K12). ``POOLING_FUNCS`` maps
-``MaskRCNNConfig.pooling`` to them.
+indices RoIAlign (``roi_align``, K4/K13), the integer-crop bilinear resize
+(``crop_and_resize``, K5/K11) and quantized max RoI pooling (``roi_pool``,
+K6/K12). ``POOLING_FUNCS`` maps ``MaskRCNNConfig.pooling`` to them.
 
 :func:`roi_align_grouped` is the wrapper: a CPU tensor goes to the plain
 torch version :func:`roi_align_grouped_plain`, a CUDA tensor to the
@@ -273,6 +273,186 @@ def roi_align_grouped(features, rois, out_size, spatial_scale,
 
 
 roi_align_grouped.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# Flat RoIAlign: rois (R, 4) with per-roi image indices (R,), kernels K4
+# (forward) and K13 (backward), the port of
+# mask_rcnn_tpu/ops/roi_align.py::roi_align (149-232). The head's public form
+# for callers with ragged roi counts per image.
+
+
+def _roi_align_flat_chunks(rois, roi_indices, feat_shape, out_size,
+                           spatial_scale, sampling_ratio, bin_stride,
+                           roi_chunk):
+    """Per chunk of rois: (slice, ay (r, P, N*H), ax (r, P, W)); each roi's
+    y matrix sits at the row offset ``roi_indices * H`` of the (N*H, W, C)
+    features, as in the JAX package's ``_roi_align_matrices``."""
+    n, h, w = feat_shape
+    for sl in _roi_chunks(rois.shape[0], roi_chunk):
+        ay, ax = _roi_align_matrices(rois[sl], h, w, out_size, spatial_scale,
+                                     sampling_ratio, bin_stride)
+        onehot = torch.nn.functional.one_hot(
+            roi_indices[sl].to(torch.int64), n).to(torch.float32)
+        ay = (ay[:, :, None, :] * onehot[:, None, :, None]).reshape(
+            ay.shape[0], out_size, n * h)
+        yield sl, ay, ax
+
+
+def roi_align_plain(features, rois, roi_indices, out_size, spatial_scale,
+                    sampling_ratio=0, bin_stride=1, roi_chunk=512):
+    """Plain torch RoIAlign on flat rois: features (N, H, W, C), rois (R, 4)
+    (y1, x1, y2, x2) in image coordinates, roi_indices (R,) in [0, N) ->
+    (R, P, P, C) in the feature dtype, computed in float32 as the JAX
+    package's two einsums over separable matrices, ``roi_chunk`` rois at a
+    time (the semantics of :func:`roi_align_grouped_plain`)."""
+    n, h, w, c = features.shape
+    f = features.to(torch.float32).reshape(n * h, w, c)
+    out = torch.empty((rois.shape[0], out_size, out_size, c),
+                      dtype=features.dtype, device=features.device)
+    for sl, ay, ax in _roi_align_flat_chunks(
+            rois, roi_indices, (n, h, w), out_size, spatial_scale,
+            sampling_ratio, bin_stride, roi_chunk):
+        # contract the longer spatial axis first (roi_align.py:197-220)
+        if n * h <= w:
+            t = torch.einsum("rqw,hwc->rqhc", ax, f)
+            out[sl] = torch.einsum("rph,rqhc->rpqc", ay, t)
+        else:
+            t = torch.einsum("rph,hwc->rpwc", ay, f)
+            out[sl] = torch.einsum("rqw,rpwc->rpqc", ax, t)
+    return out
+
+
+def roi_align_backward_plain(grad_out, rois, roi_indices, feat_shape,
+                             spatial_scale, sampling_ratio=0, bin_stride=1,
+                             roi_chunk=512):
+    """Plain flat RoIAlign backward: the explicit transpose of
+    :func:`roi_align_plain`'s einsums. grad_out (R, P, P, C) -> the
+    features' grad (N, H, W, C) in grad_out's dtype, summed in float32; the
+    rois get none (``stop_gradient``, mask_rcnn_tpu/ops/roi_align.py:113)."""
+    n, h, w = feat_shape
+    c = grad_out.shape[-1]
+    g = grad_out.to(torch.float32)
+    df = torch.zeros((n * h, w, c), dtype=torch.float32,
+                     device=grad_out.device)
+    for sl, ay, ax in _roi_align_flat_chunks(
+            rois, roi_indices, feat_shape, grad_out.shape[1], spatial_scale,
+            sampling_ratio, bin_stride, roi_chunk):
+        t = torch.einsum("rqw,rpqc->rpwc", ax, g[sl])
+        df += torch.einsum("rph,rpwc->hwc", ay, t)
+    return df.reshape(n, h, w, c).to(grad_out.dtype)
+
+
+def _check_roi_indices(roi_indices, n):
+    """Refuse an image index outside [0, N): one read of the indices' range
+    on the host (a synchronisation) before the kernel sees them."""
+    if roi_indices.numel():
+        lo, hi = torch.aminmax(roi_indices)
+        lo, hi = int(lo), int(hi)
+        if lo < 0 or hi >= n:
+            raise ValueError(f"roi_indices must lie in [0, {n}), got "
+                             f"[{lo}, {hi}]")
+
+
+def _roi_align_flat_forward(features, rois, roi_indices, out_size,
+                            spatial_scale, sampling_ratio, bin_stride):
+    """K4 on CUDA tensors, the plain version on CPU tensors."""
+    if features.device.type == "cpu":
+        return roi_align_plain(features, rois, roi_indices, out_size,
+                               spatial_scale, sampling_ratio, bin_stride)
+    _check_cuda(features, "features", "NHWC")
+    _check_cuda_flat(rois, roi_indices, features.device)
+    _check_args(out_size, sampling_ratio, bin_stride)
+    n, h, w, c = features.shape
+    _check_roi_indices(roi_indices, n)
+    r = rois.shape[0]
+    out = torch.empty((r, out_size, out_size, c), dtype=features.dtype,
+                      device=features.device)
+    err = _kernels.lib().mrcnn_roi_align_flat_fwd(
+        features.data_ptr(), rois.data_ptr(), roi_indices.data_ptr(),
+        out.data_ptr(), _DTYPE_CODE[features.dtype], n, r, h, w, c, out_size,
+        float(spatial_scale), int(sampling_ratio), int(bin_stride),
+        _kernels.stream_ptr(features.device))
+    _kernels.check(err, "mrcnn_roi_align_flat_fwd")
+    roi_align.launches += 1
+    return out
+
+
+def roi_align_backward(grad_out, rois, roi_indices, feat_shape,
+                       spatial_scale, sampling_ratio=0, bin_stride=1):
+    """K13 wrapper, the flat RoIAlign backward: grad_out (R, P, P, C) -> the
+    features' grad (N, H, W, C), contiguous NHWC in grad_out's dtype. A CPU
+    tensor takes :func:`roi_align_backward_plain`; a CUDA tensor the kernel
+    (K7's sample walk with the roi's image from its index; float32 atomics,
+    cast at the end)."""
+    if grad_out.device.type == "cpu":
+        return roi_align_backward_plain(grad_out, rois, roi_indices,
+                                        feat_shape, spatial_scale,
+                                        sampling_ratio, bin_stride)
+    _check_cuda(grad_out, "grad_out", "RPPC")
+    r, p, p2, c = grad_out.shape
+    if p != p2:
+        raise ValueError(f"grad_out must have square bins, got {p}x{p2}")
+    _check_cuda_flat(rois, roi_indices, grad_out.device)
+    _check_args(p, sampling_ratio, bin_stride)
+    n, h, w = feat_shape
+    _check_roi_indices(roi_indices, n)
+    acc = torch.zeros((n, h, w, c), dtype=torch.float32,
+                      device=grad_out.device)
+    err = _kernels.lib().mrcnn_roi_align_flat_bwd(
+        grad_out.data_ptr(), rois.data_ptr(), roi_indices.data_ptr(),
+        acc.data_ptr(), _DTYPE_CODE[grad_out.dtype], n, r, h, w, c, p,
+        float(spatial_scale), int(sampling_ratio), int(bin_stride),
+        _kernels.stream_ptr(grad_out.device))
+    _kernels.check(err, "mrcnn_roi_align_flat_bwd")
+    roi_align_backward.launches += 1
+    return acc.to(grad_out.dtype)
+
+
+roi_align_backward.launches = 0
+
+
+class RoIAlignFn(torch.autograd.Function):
+    """Flat RoIAlign with its gradient: K4 forward and K13 backward on CUDA
+    tensors, the plain pair on CPU tensors. Only the features get a
+    gradient."""
+
+    @staticmethod
+    def forward(ctx, features, rois, roi_indices, out_size, spatial_scale,
+                sampling_ratio, bin_stride):
+        ctx.save_for_backward(rois, roi_indices)
+        ctx.args = (tuple(features.shape[:3]), spatial_scale, sampling_ratio,
+                    bin_stride)
+        return _roi_align_flat_forward(features, rois, roi_indices, out_size,
+                                       spatial_scale, sampling_ratio,
+                                       bin_stride)
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        rois, roi_indices = ctx.saved_tensors
+        grad = roi_align_backward(grad_out.contiguous(), rois, roi_indices,
+                                  *ctx.args)
+        return grad, None, None, None, None, None, None
+
+
+def roi_align(features, rois, roi_indices, out_size, spatial_scale,
+              sampling_ratio=0, bin_stride=1):
+    """RoIAlign on flat rois with per-roi image indices; see
+    :func:`roi_align_plain`. On the GPU ``features`` must be contiguous
+    NHWC, ``rois`` a contiguous float32 (R, 4) tensor and ``roi_indices`` a
+    contiguous int32 (R,) tensor in [0, N) on the same device (checked on
+    the host before the launch). With gradients on, the call goes through
+    :class:`RoIAlignFn`, whose backward is K13; the rois never get a
+    gradient."""
+    if torch.is_grad_enabled() and features.requires_grad:
+        return RoIAlignFn.apply(features, rois.detach(), roi_indices,
+                                out_size, spatial_scale, sampling_ratio,
+                                bin_stride)
+    return _roi_align_flat_forward(features, rois, roi_indices, out_size,
+                                   spatial_scale, sampling_ratio, bin_stride)
+
+
+roi_align.launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -690,8 +870,9 @@ roi_pool.launches = 0
 
 
 # ``MaskRCNNConfig.pooling`` -> pooler. "align" takes rois grouped per image
-# (N, R, 4); the other two take flat rois (R, 4) and batch indices (R,), as
-# the JAX package's do (the flat RoIAlign, K4, is not ported yet).
+# (N, R, 4) (``head_forward`` routes flat rois to :func:`roi_align`); the
+# other two take flat rois (R, 4) and batch indices (R,), as the JAX
+# package's do.
 POOLING_FUNCS = {
     "align": roi_align_grouped,
     "resize": crop_and_resize,

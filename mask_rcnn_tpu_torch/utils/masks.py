@@ -122,3 +122,56 @@ def paste_masks(bbox: np.ndarray, mask_probs: np.ndarray, im_h: int,
         h, w = local.shape
         out[i, y0:y0 + h, x0:x0 + w] = local
     return out
+
+
+def boxlocal_inter_areas(locals_, gt_masks, det_labels, gt_labels):
+    """Det-vs-gt intersections + areas from box-local masks.
+
+    The shared ingestion core of ``COCOEvaluation.add_boxlocal`` and
+    ``VOCEvaluation.add_boxlocal`` (one implementation so the two metrics
+    cannot diverge): intersections are integer counts over each detection's
+    clipped box crop, computed for label-equal pairs only (cross-class
+    entries stay 0 — the evaluators never read them). Dispatches to the C++
+    kernel (``native.boxlocal_inter``) when available; the numpy path below
+    is the fallback.
+
+    Args:
+        locals_: ``[(local (h, w) bool, y0, x0), ...]`` from
+            :func:`boxlocal_masks` (already clipped to the image).
+        gt_masks: (G, H, W) bool.
+        det_labels, gt_labels: int labels.
+
+    Returns:
+        (inter (D, G) int64, det_area (D,) int64, gt_area (G,) int64).
+    """
+    from mask_rcnn_tpu_torch.utils import native
+
+    dl = np.asarray(det_labels)
+    gl = np.asarray(gt_labels)
+    d, g = len(dl), len(gl)
+    if d and g:
+        res = native.boxlocal_inter(locals_, gt_masks, dl, gl)
+        if res is not None:
+            return res
+    det_area = np.asarray(
+        [local.sum() for local, _, _ in locals_], np.int64
+    )
+    gt_area = (
+        gt_masks.sum(axis=(1, 2)).astype(np.int64)
+        if g else np.zeros(0, np.int64)
+    )
+    inter = np.zeros((d, g), np.int64)
+    if d and g:
+        for lbl in np.unique(np.concatenate([dl, gl])):
+            di = np.flatnonzero(dl == lbl)
+            gi = np.flatnonzero(gl == lbl)
+            if not len(di) or not len(gi):
+                continue
+            gmc = gt_masks[gi]  # hoisted: one copy per class, not per det
+            for p in di:
+                local, y0, x0 = locals_[p]
+                h, w = local.shape
+                if h and w:
+                    crop = gmc[:, y0:y0 + h, x0:x0 + w]
+                    inter[p, gi] = (crop & local[None]).sum(axis=(1, 2))
+    return inter, det_area, gt_area

@@ -424,3 +424,105 @@ def test_head_forward_runs_pool_kernels(dev, pooling, n):
     for k in want:
         torch.testing.assert_close(got[k].cpu(), want[k], rtol=1e-4,
                                    atol=1e-4 * want[k].abs().max().item())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(2, 64, 96), (1, 61, 91), (3, 17, 130),
+                                   (1, 832, 1344)])
+def test_stem_kernel_matches_plain(dev, dtype, shape):
+    from mask_rcnn_tpu_torch.models import resnet
+    from mask_rcnn_tpu_torch.models.mask_rcnn import set_float32_precision
+
+    set_float32_precision()
+    gen = torch.Generator().manual_seed(0)
+    params = resnet.init_extractor(gen)
+    params = {"conv1": params["conv1"],
+              "bn1": {"scale": torch.rand(64, generator=gen) + 0.25,
+                      "bias": torch.randn(64, generator=gen)}}
+    x = torch.randn(*shape, 3, generator=gen) * 60
+    p = {k: {n: t.to(dev, dtype) for n, t in v.items()}
+         for k, v in params.items()}
+    got = resnet.stem_forward(p, x.to(dev, dtype))
+    want = resnet.stem_forward_plain(
+        {k: {n: t.float() for n, t in v.items()} for k, v in p.items()},
+        x.to(dev, dtype).float())
+    assert got.dtype == dtype and got.shape == want.shape
+    scale = want.abs().max().item()
+    if dtype == torch.float32:  # summation order: 1e-5 of the largest
+        torch.testing.assert_close(got, want, rtol=0, atol=1e-5 * scale)
+    else:  # one bf16 rounding of the float32 result + 1e-3 of the largest
+        torch.testing.assert_close(got.float(), want, rtol=2.0 ** -8,
+                                   atol=1e-3 * scale)
+
+
+def test_stem_kernel_refuses_gradients(dev):
+    from mask_rcnn_tpu_torch.models import resnet
+
+    params = resnet.init_extractor(torch.Generator().manual_seed(0))
+    p = {k: {n: t.to(dev) for n, t in params[k].items()}
+         for k in ("conv1", "bn1")}
+    x = torch.randn(1, 32, 32, 3, device=dev, requires_grad=True)
+    with pytest.raises(RuntimeError, match="no backward"):
+        resnet.stem_forward(p, x)
+    with torch.no_grad():
+        resnet.stem_forward(p, x)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("bin_stride,sampling_ratio", [(1, 0), (2, 0),
+                                                       (2, 2)])
+def test_flat_roi_align_kernels_match_plain(dev, dtype, bin_stride,
+                                            sampling_ratio):
+    rng = np.random.RandomState(1)
+    n, h, w, c = 3, 13, 21, 70
+    feats = torch.from_numpy(rng.randn(n, h, w, c).astype(np.float32))
+    rois = random_boxes(rng, 53, h * 16, w * 16, min_size=2)
+    rois[:3] = [[-20, -20, 40, 40], [h * 16 - 30, w * 16 - 30,
+                                     h * 16 + 30, w * 16 + 30], [0, 0, 0, 0]]
+    idx = torch.from_numpy(rng.randint(0, n, 53).astype(np.int32)).to(dev)
+    rois = torch.from_numpy(rois).to(dev)
+    f = feats.to(dev, dtype)
+    args = (7, 1 / 16, sampling_ratio, bin_stride)
+    got = roi_align.roi_align(f, rois, idx, *args)
+    want = roi_align.roi_align_plain(f.float(), rois, idx, *args)
+    rtol = 2.0 ** -8 if dtype == torch.bfloat16 else 1e-5
+    torch.testing.assert_close(got.float(), want, rtol=rtol, atol=1e-5)
+    g = torch.randn(got.shape, device=dev).to(dtype)
+    got = roi_align.roi_align_backward(g, rois, idx, (n, h, w), 1 / 16,
+                                       sampling_ratio, bin_stride)
+    want = roi_align.roi_align_backward_plain(g.float(), rois, idx,
+                                              (n, h, w), 1 / 16,
+                                              sampling_ratio, bin_stride)
+    torch.testing.assert_close(got.float(), want, rtol=rtol,
+                               atol=1e-5 * want.abs().max().item())
+
+
+def test_flat_roi_align_refuses_bad_indices(dev):
+    feats = torch.zeros(2, 8, 8, 32, device=dev)
+    rois = torch.zeros(3, 4, device=dev)
+    for idx in ([0, 2, 1], [-1, 0, 0]):
+        with pytest.raises(ValueError, match="roi_indices"):
+            roi_align.roi_align(feats, rois, torch.tensor(
+                idx, dtype=torch.int32, device=dev), 7, 1 / 16)
+    with pytest.raises(ValueError, match="int32"):
+        roi_align.roi_align(feats, rois, torch.zeros(3, dtype=torch.int64,
+                                                     device=dev), 7, 1 / 16)
+
+
+def test_flat_head_runs_flat_kernels(dev):
+    from mask_rcnn_tpu_torch.models import heads
+    from mask_rcnn_tpu_torch.models.mask_rcnn import map_params
+
+    params = map_params(lambda t: t.to(dev),
+                        heads.init_head(torch.Generator().manual_seed(0), 5))
+    feats = torch.randn(2, 4, 6, 1024, device=dev, requires_grad=True)
+    rois = torch.tensor([[0, 0, 40, 60], [8, 8, 50, 90], [4, 0, 64, 96]],
+                        dtype=torch.float32, device=dev)
+    idx = torch.tensor([1, 0, 1], dtype=torch.int32, device=dev)
+    roi_align.roi_align.launches = 0
+    roi_align.roi_align_backward.launches = 0
+    out = heads.head_forward(params, feats, rois, roi_indices=idx)
+    (out["scores"].sum() + out["masks"].sum()).backward()
+    assert roi_align.roi_align.launches == 1
+    assert roi_align.roi_align_backward.launches == 1
+    assert feats.grad is not None and feats.grad.abs().sum() > 0
