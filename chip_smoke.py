@@ -3,6 +3,7 @@
 GPU.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --against OTHER_CHECKOUT
 
 1. builds the hand-written CUDA kernels from ``mask_rcnn_tpu_torch/csrc``
    (one nvcc per source, in parallel);
@@ -36,8 +37,11 @@ GPU.
    masks: 3 warm-up and 10 (``align``) or 5 timed steps; checks that every
    loss is finite, that the frozen params did not change and every
    trainable one did, and that the stem K10, the pooler's kernels (K1/K7,
-   K5/K11 or K6/K12), K2, K8 and K9 were launched during that run; then
-   profiles two more steps (the serving path checks K10 too);
+   K5/K11 or K6/K12), K2, K8 and K9 were launched during that run; the
+   align run then times the step with the four-op stem swapped in, and K2
+   against its plain version on the boxes that the step's RPN hands it
+   (identical, with where the scan stopped); then profiles two more steps
+   (the serving path checks K10 too);
 6. flat head path: ``head_forward`` on flat rois with image indices (R-50
    res5, 80 classes, bf16, a 1300/700 split over a 2-image 832x1344 batch),
    forward and backward; checks that K4 and K13 were launched, then the
@@ -50,11 +54,19 @@ GPU.
    and that K10, K1, K2, K3, K7, K8 and K9 were launched.
 
 Prints the card's name and power limit, each path's times, one JSON line
-of kernel results, and as its last line ``{"ok": true, "device": {...}}``.
+of kernel results (``launches`` over every main-path run above,
+``launches_main`` over the default configuration's: the ``align`` serving
+and train runs and the train loop), and as its last line
+``{"ok": true, "device": {...}}``.
 Exits non-zero, and prints no result, when a phase fails or no CUDA device
 is present.
+
+With ``--against OTHER_CHECKOUT`` it runs none of the above: it times K1, K2
+and K4 of this checkout against another checkout's on the same inputs (see
+:func:`run_against`).
 """
 
+import argparse
 import json
 import os
 import subprocess
@@ -129,16 +141,34 @@ def align_samples(rois, feat_hw, p=7, s=2, scale=1 / 16):
     return float((gy * gx).sum()) * p * p
 
 
+def nms_stops(idx, mask, n, max_out):
+    """Per problem, the candidates that a greedy scan reads: up to the last
+    kept box once ``max_out`` survive, else all ``n``."""
+    stops = []
+    for row_idx, row_mask in zip(idx.cpu().numpy(), mask.cpu().numpy()):
+        kept = row_idx[row_mask]
+        full = max_out and len(kept) >= max_out
+        stops.append(int(kept.max()) + 1 if full else n)
+    return stops
+
+
 def nms_pairs(idx, mask, n, max_out):
     """IoU pairs a greedy NMS needs on this data: each kept box against the
     candidates after it, up to the row where the scan stopped (12 float ops
     a pair)."""
     pairs = 0
-    for row_idx, row_mask in zip(idx.cpu().numpy(), mask.cpu().numpy()):
+    for row_idx, row_mask, stop in zip(idx.cpu().numpy(), mask.cpu().numpy(),
+                                       nms_stops(idx, mask, n, max_out)):
         kept = row_idx[row_mask]
-        stop = kept.max() + 1 if len(kept) >= max_out else n
         pairs += int((stop - kept - 1).clip(min=0).sum())
     return pairs
+
+
+def scan_note(idx, mask, n, max_out):
+    """Where K2's scan stopped, in candidates and tiles of 64."""
+    stops = nms_stops(idx, mask, n, max_out)
+    return (f"scan stopped after candidate {stops} "
+            f"(tile {[-(-s // 64) for s in stops]} of {-(-n // 64)})")
 
 
 def proposal_like_boxes(rng, n, h, w):
@@ -191,16 +221,20 @@ def check_kernels(torch, results):
             feats, rois, *args))
         plain_ms = cuda_ms(torch, lambda: roi_align.roi_align_grouped_plain(
             feats.float(), rois, *args), warmup=1, iters=3)
+        samples = align_samples(boxes, (52, 84))
+        # logical tap bytes: four taps of every channel a sample, whether
+        # they come from L1, L2 or memory
+        taps = samples * 4 * 1024 * feats.element_size()
         print(f"K1 roi_align {r} rois: max|err| {err.max().item():.3e} "
               f"(rtol {rtol:g}, atol {atol:g}, {bad} outside), "
-              f"kernel {ms:.4f} ms, plain f32 {plain_ms:.4f} ms")
+              f"kernel {ms:.4f} ms, plain f32 {plain_ms:.4f} ms, "
+              f"{taps / 1e6:.1f} MB of logical tap reads")
         if bad:
             raise AssertionError(f"K1 disagrees with its plain version at "
                                  f"{bad} values ({r} rois)")
         if r == 1000:  # the box pass's shape; the mask pass's is printed
             k1["ms"], k1["plain_ms"] = ms, plain_ms
-            k1.update(bound(nbytes(feats, rois, got), 8 * 1024 *
-                            align_samples(boxes, (52, 84))))
+            k1.update(bound(nbytes(feats, rois, got), 8 * 1024 * samples))
     results["roi_align_grouped"] = k1
 
     # K2: 6000 score-sorted proposals -> 1000 at 0.7; a tail of invalid
@@ -228,9 +262,11 @@ def check_kernels(torch, results):
         ms = cuda_ms(torch, lambda: fn(b, v, t, k))
         plain_ms = cuda_ms(torch, lambda: plain(b, v, t, k), warmup=1,
                            iters=3)
+        scan = (", " + scan_note(want_idx, want_mask, b.shape[1], k)
+                if name == "nms_blocked" else "")
         print(f"{'K2' if name == 'nms_blocked' else 'K3'} {name} "
               f"{tuple(b.shape)} -> {k}: identical={same} "
-              f"(kept {int(mask.sum())}), kernel {ms:.4f} ms, "
+              f"(kept {int(mask.sum())}{scan}), kernel {ms:.4f} ms, "
               f"plain {plain_ms:.4f} ms")
         if not same:
             raise AssertionError(f"{name} differs from its plain version at "
@@ -417,7 +453,7 @@ def check_train_kernels(torch, results):
                                                               w // 16)))}
 
     # K2 at the train counts: (2, 12000) score-sorted proposals -> 2000 at
-    # 0.7, a (2, 12000, 188) int64 scratch; a tail of invalid rows.
+    # 0.7, one block per image; a tail of invalid rows.
     n_pre, n_post = 12000, 2000
     boxes = torch.from_numpy(np.stack(
         [proposal_like_boxes(rng, n_pre, h, w) for _ in range(n)])).to(dev)
@@ -432,9 +468,9 @@ def check_train_kernels(torch, results):
     ms = cuda_ms(torch, fn)
     plain_ms = cuda_ms(torch, plain, warmup=1, iters=3)
     print(f"K2 nms_blocked at train counts {tuple(boxes.shape)} -> {n_post}: "
-          f"identical={n_diff == 0} (kept {mask.sum(1).tolist()}), scratch "
-          f"({n}, {n_pre}, {-(-n_pre // 64)}) int64, kernel {ms:.4f} ms, "
-          f"plain {plain_ms:.4f} ms")
+          f"identical={n_diff == 0} (kept {mask.sum(1).tolist()}, "
+          f"{scan_note(want_idx, want_mask, n_pre, n_post)}), "
+          f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
     if n_diff:
         raise AssertionError(f"K2 differs from its plain version at train "
                              f"counts at {n_diff} positions")
@@ -977,10 +1013,59 @@ def drive_train_path(torch, kernels, pooling="align", reps=10):
           f"{ms:.3f} ms/step (CUDA events over {reps} steps after 3 warm-up), "
           f"{n * 1e3 / ms:.3f} img/s; host clock {host_ms:.3f} ms/step; "
           f"peak allocated {peak_gb:.2f} GiB")
-    stem_ab = time_stem_ab(torch, step, state, batch, reps) \
-        if pooling == "align" else None
+    extra = {}
+    if pooling == "align":
+        extra["stem_ab"] = time_stem_ab(torch, step, state, batch, reps)
+        extra["k2_on_step"] = time_k2_on_step(torch, step, state, batch)
     profile_train(torch, step, state, batch)
-    return counts, ms, host_ms, peak_gb, stem_ab
+    return counts, ms, host_ms, peak_gb, extra
+
+
+def time_k2_on_step(torch, step, state, batch):
+    """K2 on the train step's own proposals: one more step runs with the
+    RPN's ``nms_padded`` recording the score-sorted boxes and valid flags
+    that it hands to ``nms_blocked``; then K2 against its plain version on
+    them (identical positions and masks), both timed, and where the scan
+    stopped. The counts of the step's run were read before this."""
+    from mask_rcnn_tpu_torch.models import rpn
+    from mask_rcnn_tpu_torch.ops import nms
+
+    padded, seen = rpn.nms_padded, []
+
+    def record(bbox, score, thresh, max_out, valid=None, presorted=False):
+        assert presorted and valid is not None
+        seen.append((bbox.detach().float().contiguous().clone(),
+                     valid.contiguous().clone(), thresh, max_out))
+        return padded(bbox, score, thresh, max_out, valid=valid,
+                      presorted=presorted)
+
+    rpn.nms_padded = record
+    try:
+        step(state, batch, SEED)
+    finally:
+        rpn.nms_padded = padded
+    ((boxes, valid, thresh, max_out),) = seen
+    n = boxes.shape[1]
+    assert n > nms.SMALL_MAX_N, "the step's proposals did not reach K2"
+    fn = lambda: nms.nms_blocked(boxes, valid, thresh, max_out)  # noqa: E731
+    plain = lambda: nms.nms_blocked_plain(boxes, valid, thresh,  # noqa: E731
+                                          max_out)
+    (idx, mask), (want_idx, want_mask) = fn(), plain()
+    torch.cuda.synchronize()
+    n_diff = ((idx != want_idx).sum() + (mask != want_mask).sum()).item()
+    ms = cuda_ms(torch, fn)
+    plain_ms = cuda_ms(torch, plain, warmup=1, iters=3)
+    stops = nms_stops(want_idx, want_mask, n, max_out)
+    print(f"K2 nms_blocked on the align train step's proposals "
+          f"{tuple(boxes.shape)} -> {max_out} at {thresh}: identical="
+          f"{n_diff == 0} (valid {valid.sum(1).tolist()}, kept "
+          f"{mask.sum(1).tolist()}, {scan_note(want_idx, want_mask, n, max_out)}"
+          f"), kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
+    if n_diff:
+        raise AssertionError(f"K2 differs from its plain version on the "
+                             f"train step's proposals at {n_diff} positions")
+    return {"ms": ms, "plain_ms": plain_ms, "scan_stop": stops,
+            "kept": mask.sum(1).tolist(), "valid": valid.sum(1).tolist()}
 
 
 def time_stem_ab(torch, step, state, batch, reps):
@@ -1306,7 +1391,7 @@ def kernel_group(name):
         ("K11 crop_resize bwd", ("crop_resize_bwd",)),
         ("K6 roi_pool fwd", ("roi_pool_fwd",)),
         ("K12 roi_pool bwd", ("roi_pool_bwd",)),
-        ("K2 nms", ("nms_mask", "nms_scan")),
+        ("K2 nms", ("nms_tiled",)),
         ("K8/K9 targets", ("anchor_", "proposal_match", "mask_crop")),
         ("conv/matmul (cuDNN, cuBLAS)", ("conv", "gemm", "xmma", "cutlass",
                                          "sm90", "wgrad", "dgrad", "nchw",
@@ -1368,12 +1453,140 @@ def check_outputs(imgs, bboxes, masks, labels, scores):
             assert (s >= 0).all() and (s <= 1).all()
 
 
-def main() -> int:
+AB_CASES = ("k1_bf16_1000", "k1_bf16_100", "k1_f32_1000", "k4_bf16_2000",
+            "k2_6000_1000", "k2_2x12000_2000")
+
+
+def ab_inputs(torch, path):
+    """The A/B cases' inputs at phase 2's shapes, from fixed seeds, saved
+    with ``torch.save``: (1, 52, 84, 1024) features with 1000 and 100
+    proposal-like rois (K1), (2, 52, 84, 1024) features with 1300 / 700 flat
+    rois (K4), 6000 and (2, 12000) score-sorted boxes with invalid rows
+    (K2)."""
+    rng = np.random.RandomState(SEED)
+    fh, fw = TRAIN_HW[0] // 16, TRAIN_HW[1] // 16
+    t = torch.from_numpy
+    x = {"feats": t(rng.randn(1, fh, fw, 1024).astype(np.float32)),
+         "feats2": t(rng.randn(2, fh, fw, 1024).astype(np.float32))}
+    for r in (1000, 100):
+        boxes = proposal_like_boxes(rng, r, *TRAIN_HW)
+        boxes[-r // 20:] = 0.0  # zero-padded slots, as proposals have
+        x[f"rois_{r}"] = t(boxes[None])
+    flat = np.concatenate([proposal_like_boxes(rng, k, *TRAIN_HW)
+                           for k in FLAT_SPLIT])
+    flat_idx = np.repeat(np.arange(2, dtype=np.int32), FLAT_SPLIT)
+    perm = rng.permutation(len(flat_idx))
+    x["flat_rois"], x["flat_idx"] = t(flat[perm]), t(flat_idx[perm])
+    for b, n in ((1, 6000), (2, 12000)):
+        boxes = np.stack([proposal_like_boxes(rng, n, *TRAIN_HW)
+                          for _ in range(b)])
+        valid = (rng.rand(b, n) > 0.02) & (np.arange(n) < n - 100)
+        x[f"nms_boxes_{n}"], x[f"nms_valid_{n}"] = t(boxes), t(valid)
+    torch.save(x, path)
+
+
+def ab_worker(tree, inputs, out):
+    """One side of the A/B: with ``tree``'s package, build its kernels, run
+    each case once for its output and time it (CUDA events, 3 warm-up and
+    20 timed calls); save outputs and times."""
+    sys.path.insert(0, os.path.abspath(tree))
+    import torch
+
+    from mask_rcnn_tpu_torch.ops import _kernels, nms, roi_align
+
+    assert os.path.dirname(_kernels.__file__).startswith(
+        os.path.abspath(tree)), _kernels.__file__
+    _kernels.lib()
+    x = {k: v.cuda() for k, v in torch.load(inputs).items()}
+    bf, bf2 = x["feats"].bfloat16(), x["feats2"].bfloat16()
+    args = (7, 1 / 16, 0, 2)
+    calls = {
+        "k1_bf16_1000": lambda: roi_align.roi_align_grouped(
+            bf, x["rois_1000"], *args),
+        "k1_bf16_100": lambda: roi_align.roi_align_grouped(
+            bf, x["rois_100"], *args),
+        "k1_f32_1000": lambda: roi_align.roi_align_grouped(
+            x["feats"], x["rois_1000"], *args),
+        "k4_bf16_2000": lambda: roi_align.roi_align(
+            bf2, x["flat_rois"], x["flat_idx"], *args),
+        "k2_6000_1000": lambda: nms.nms_blocked(
+            x["nms_boxes_6000"], x["nms_valid_6000"], 0.7, 1000),
+        "k2_2x12000_2000": lambda: nms.nms_blocked(
+            x["nms_boxes_12000"], x["nms_valid_12000"], 0.7, 2000),
+    }
+    outputs, ms = {}, {}
+    with torch.no_grad():
+        for name in AB_CASES:
+            got = calls[name]()
+            got = got if isinstance(got, tuple) else (got,)
+            outputs[name] = tuple(g.cpu() for g in got)
+            ms[name] = cuda_ms(torch, calls[name])
+    torch.save({"outputs": outputs, "ms": ms}, out)
+
+
+def run_against(torch, other) -> int:
+    """K1, K2 and K4 of this checkout against ``other``'s: the same inputs
+    (:func:`ab_inputs`) through each checkout's package in its own process,
+    in the order other, this, this, other. Prints each run's times, whether
+    this checkout's outputs equal the other's bit for bit (where not, how
+    many values of the first output differ and by how much), and one JSON
+    line."""
+    import tempfile
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    trees = {"other": os.path.abspath(other), "this": here}
+    card = nvidia_smi()
+    print(card)
+    runs, outputs = [], {}
+    with tempfile.TemporaryDirectory(prefix="mrcnn_ab_") as tmp:
+        inputs = os.path.join(tmp, "inputs.pt")
+        ab_inputs(torch, inputs)
+        for i, side in enumerate(("other", "this", "this", "other")):
+            out = os.path.join(tmp, f"{i}.pt")
+            subprocess.run([sys.executable, os.path.abspath(__file__),
+                            "--ab-worker", trees[side], inputs, out],
+                           check=True, cwd=trees[side])
+            res = torch.load(out)
+            outputs.setdefault(side, res["outputs"])
+            runs.append({"tree": side, "ms": res["ms"]})
+            print(f"run {i} ({side}, {trees[side]}): " + ", ".join(
+                f"{k} {v:.4f} ms" for k, v in res["ms"].items()))
+    identical, differ = {}, {}
+    for name in AB_CASES:
+        pairs = list(zip(outputs["other"][name], outputs["this"][name]))
+        identical[name] = all(torch.equal(p, q) for p, q in pairs)
+        line = f"{name}: identical to the other checkout's {identical[name]}"
+        if not identical[name]:
+            p, q = (v.float() for v in pairs[0])
+            diff = (q - p).abs()
+            differ[name] = {"values": int((diff > 0).sum()),
+                            "of": diff.numel(),
+                            "max_abs": diff.max().item()}
+            line += (f" ({differ[name]['values']} of {diff.numel()} values "
+                     f"differ, max |diff| {differ[name]['max_abs']:.3e})")
+        print(line)
+    print(json.dumps({"card": card, "identical": identical,
+                      "differ": differ, "runs": runs}))
+    return 0
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--against", metavar="OTHER_CHECKOUT",
+                    help="time K1, K2 and K4 against another checkout's "
+                    "instead of the smoke")
+    ap.add_argument("--ab-worker", nargs=3, help=argparse.SUPPRESS)
+    a = ap.parse_args(argv)
+    if a.ab_worker:
+        ab_worker(*a.ab_worker)
+        return 0
     import torch
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
+    if a.against:
+        return run_against(torch, a.against)
     from mask_rcnn_tpu_torch.models import resnet
     from mask_rcnn_tpu_torch.models.mask_rcnn import set_float32_precision
     from mask_rcnn_tpu_torch.ops import _kernels, nms, roi_align, targets
@@ -1404,53 +1617,62 @@ def main() -> int:
         check_train_reference(torch, pooling)
 
     # Each main path runs with its kernels' counts set to 0 just before it
-    # and read just after; a kernel's "launches" sums its main-path runs.
+    # and read just after; a kernel's "launches" sums its main-path runs,
+    # "launches_main" those of the default configuration (pooling="align"):
+    # the align serving and train runs and the driver.
     pool_fwd = {"align": roi_align.roi_align_grouped,
                 "resize": roi_align.crop_and_resize,
                 "pooling": roi_align.roi_pool}
     pool_bwd = {"align": roi_align.roi_align_grouped_backward,
                 "resize": roi_align.crop_and_resize_backward,
                 "pooling": roi_align.roi_pool_backward}
-    launches, serving, training = {}, {}, {}
+    launches, launches_main, serving, training = {}, {}, {}, {}
 
-    def count(counts):
+    def count(counts, main):
         for name, c in counts.items():
             launches[name] = launches.get(name, 0) + c
+            if main:
+                launches_main[name] = launches_main.get(name, 0) + c
 
     for pooling in POOLERS:
         counts, ms_img, step_ms = drive_main_path(
             torch, (resnet.stem_forward, pool_fwd[pooling], nms.nms_blocked,
                     nms.nms_small), pooling)
-        count(counts)
+        count(counts, pooling == "align")
         serving[pooling] = {"predict_ms_per_img_b1": ms_img,
                             "predict_submit_ms_per_img_b1": step_ms}
     for pooling in POOLERS:
-        counts, ms, host_ms, peak_gb, stem_ab = drive_train_path(
+        counts, ms, host_ms, peak_gb, extra = drive_train_path(
             torch, (resnet.stem_forward, pool_fwd[pooling], nms.nms_blocked,
                     pool_bwd[pooling], targets.mask_crop_resize,
                     targets.anchor_match, targets.proposal_match),
             pooling, reps=10 if pooling == "align" else 5)
-        count(counts)
+        count(counts, pooling == "align")
         training[pooling] = {"train_ms_per_step_b2": ms,
                              "train_img_per_s_b2": 2e3 / ms,
                              "train_host_ms_per_step_b2": host_ms,
                              "train_peak_gib": peak_gb, "launches": counts}
-        if stem_ab:
-            training[pooling]["stem_ab"] = stem_ab
+        training[pooling].update(extra)
+        if "k2_on_step" in extra:
+            results["nms_blocked"]["step_ms"] = extra["k2_on_step"]["ms"]
+            results["nms_blocked"]["step_plain_ms"] = \
+                extra["k2_on_step"]["plain_ms"]
     counts, flat_ms = drive_flat_head(
         torch, (roi_align.roi_align, roi_align.roi_align_backward))
-    count(counts)
+    count(counts, False)
     counts, loop = drive_train_loop(
         torch, (resnet.stem_forward, roi_align.roi_align_grouped,
                 nms.nms_blocked, nms.nms_small,
                 roi_align.roi_align_grouped_backward,
                 targets.mask_crop_resize, targets.anchor_match,
                 targets.proposal_match))
-    count(counts)
+    count(counts, True)
     loop["launches"] = counts
-    launches["anchor_match"] += launches.pop("proposal_match")
+    for tally in (launches, launches_main):
+        tally["anchor_match"] += tally.pop("proposal_match")
     for name, entry in results.items():
         entry["launches"] = launches[name]
+        entry["launches_main"] = launches_main.get(name, 0)
 
     print(json.dumps({"serving": serving, "training": training,
                       "flat_head_ms_fwd_bwd": flat_ms, "train_loop": loop,

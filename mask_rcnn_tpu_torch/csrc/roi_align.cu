@@ -5,16 +5,31 @@
 // 235-301, with _interp_matrix 36-100 and _roi_align_matrices 103-146). The
 // JAX package wrote RoIAlign as two einsums over one-hot interpolation
 // matrices so that the TPU's matrix unit does the work; on Hopper a gather
-// is the natural form: one block per (image, roi) and channel tile, one
-// thread per channel, so that each bilinear tap is a coalesced load of
-// neighbouring NHWC channels.
+// is the natural form.
 //
-// What bounds K1 on an H100: reads. At the slice's shapes (features
-// (1, 52, 84, 1024) bf16 = 8.9 MB, which stays in the 50 MB L2) each output
-// value costs 4 * gy * gx taps; no tensor-core work exists. The design keeps
-// the whole per-roi sample grid in registers and accumulates in fp32, so
-// device memory sees the features once (from L2 after that) and the output
-// once.
+// What bounds K1 on an H100: the bilinear taps' reads, from L2. At the
+// slice's shapes (features (1, 52, 84, 1024) bf16 = 8.9 MB, which stays in
+// the 50 MB L2) each output value costs 4 * gy * gx taps, ~1.5 GB of tap
+// reads at 1000 proposal-like rois; no tensor-core work exists. It replaces
+// a one-thread-per-channel kernel, in which a warp's tap was a 64-byte
+// request and every thread recomputed the roi's geometry and samples.
+// This design, one block per (roi, output row ph):
+//   * the block computes the row's sample taps once into shared memory
+//     (row index, weight and skip flag per sample row and column, with the
+//     position code below, so every skip decision stays bit-identical
+//     between K1, K4, K7 and K13);
+//   * each thread owns a group of 16 bytes of channels (8 bf16 or 4
+//     float32): each tap is one 16-byte load, summed into 8 (4) float32
+//     accumulators, and each output one 16-byte store, so a warp's tap is
+//     a 512-byte request;
+//   * threads walk the row's P bins with the same channel group, and each
+//     channel's sum keeps the one-thread-per-channel kernel's order (iy,
+//     then ix) and its float32 four-tap expression, with the FMAs written
+//     out (bilerp) so that the float32 output stays bit-identical to it.
+// A C that is not a multiple of the group (the tests use 70) takes the
+// scalar form of the same kernel: each group is read channel by channel and
+// the last group holds the C mod 8 (4) tail. The wrapper refuses features
+// that are not 16-byte aligned.
 //
 // K7 replaces the autodiff transpose of those einsums (XLA's transpose of
 // roi_align.py:282-301; the rois are stop_gradient, :113). It walks the same
@@ -34,8 +49,8 @@
 // passes a null index and the image is roi / R; the flat launch reads the
 // image from the index, which its wrapper has checked to lie in [0, N) (the
 // kernels also skip any other value, so they never read or write outside
-// the features). Same bounds, same design: one block per roi and channel
-// tile, so a roi's image changes nothing of the per-thread work.
+// the features). Same bounds, same design: a roi's image changes nothing of
+// the per-thread work.
 //
 // Semantics reproduced exactly (mask_rcnn_tpu/ops/roi_align.py:22-27,
 // 113-134):
@@ -52,6 +67,8 @@
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <limits.h>
+#include <stdint.h>
 
 namespace {
 
@@ -86,6 +103,19 @@ __device__ __forceinline__ bool axis_tap(float c, int size, Tap* t) {
   return true;
 }
 
+// Samples per bin along an axis: sampling_ratio, else the adaptive grid
+// `want` = ceil(bin) clipped to [1, ceil(size / full)] (full = P *
+// bin_stride). roi_geom takes it on the device; the forward launcher sizes
+// its tap buffer with want = INT_MAX, the most any roi can take.
+__host__ __device__ __forceinline__ int grid_size(int want, int size,
+                                                  int full,
+                                                  int sampling_ratio) {
+  if (sampling_ratio > 0) return sampling_ratio;
+  const int most = (size + full - 1) / full;
+  const int g = want > 1 ? want : 1;
+  return g < most ? g : most;
+}
+
 // The per-roi sampling geometry. Sample coordinates decide the
 // discontinuous skip rule, so they are computed with round-to-nearest
 // intrinsics (no FMA contraction) in the plain version's operation order:
@@ -109,14 +139,8 @@ __device__ __forceinline__ RoiGeom roi_geom(const float* box,
   const int full = P * bin_stride;
   g.bin_y = __fdiv_rn(extent_y, (float)full);
   g.bin_x = __fdiv_rn(extent_x, (float)full);
-  if (sampling_ratio > 0) {
-    g.gy = g.gx = sampling_ratio;
-  } else {
-    const int max_gy = (H + full - 1) / full;
-    const int max_gx = (W + full - 1) / full;
-    g.gy = min(max((int)ceilf(g.bin_y), 1), max_gy);
-    g.gx = min(max((int)ceilf(g.bin_x), 1), max_gx);
-  }
+  g.gy = grid_size((int)ceilf(g.bin_y), H, full, sampling_ratio);
+  g.gx = grid_size((int)ceilf(g.bin_x), W, full, sampling_ratio);
   g.step_y = __fdiv_rn(g.bin_y, (float)g.gy);
   g.step_x = __fdiv_rn(g.bin_x, (float)g.gx);
   g.inv_count = 1.0f / (float)(g.gy * g.gx);
@@ -140,50 +164,165 @@ __device__ __forceinline__ float sample_at(float origin, int k, float step) {
   return __fadd_rn(origin, __fmul_rn((float)k + 0.5f, step));
 }
 
+// A sample's tap in shared memory; low < 0 marks a skipped sample.
+__device__ __forceinline__ Tap sample_tap(float c, int size) {
+  Tap t;
+  if (!axis_tap(c, size, &t)) {
+    t.low = t.high = -1;
+    t.lw = t.hw = 0.0f;
+  }
+  return t;
+}
+
+// One sample's four taps, ty.hw * (tx.hw * ll + tx.lw * lh) +
+// ty.lw * (tx.hw * hl + tx.lw * hh), with the FMA contraction that nvcc gave
+// the float32 one-thread-per-channel kernel, written out so that no
+// compiler choice changes a bit.
+__device__ __forceinline__ float bilerp(const Tap& ty, const Tap& tx,
+                                        float ll, float lh, float hl,
+                                        float hh) {
+  const float top = __fmaf_rn(tx.lw, lh, __fmul_rn(tx.hw, ll));
+  const float bottom = __fmaf_rn(tx.hw, hl, __fmul_rn(tx.lw, hh));
+  return __fmaf_rn(ty.hw, top, __fmul_rn(ty.lw, bottom));
+}
+
+// A group of kVec = 16 / sizeof(T) channels: one 16-byte load or store, or
+// (kVector false) nc <= kVec scalar ones.
 template <typename T>
-__global__ void roi_align_fwd_kernel(const T* __restrict__ feats,
-                                     const float* __restrict__ rois,
-                                     const int* __restrict__ roi_idx,
-                                     T* __restrict__ out, int N, int R, int H,
-                                     int W, int C, int P, float spatial_scale,
-                                     int sampling_ratio, int bin_stride) {
+struct Group {
+  static constexpr int kVec = 16 / (int)sizeof(T);
+};
+
+template <bool kVector>
+__device__ __forceinline__ void load_group(const float* p, float* v, int nc) {
+  if (kVector) {
+    const float4 x = __ldg(reinterpret_cast<const float4*>(p));
+    v[0] = x.x;
+    v[1] = x.y;
+    v[2] = x.z;
+    v[3] = x.w;
+  } else {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) v[e] = e < nc ? __ldg(p + e) : 0.0f;
+  }
+}
+
+template <bool kVector>
+__device__ __forceinline__ void load_group(const __nv_bfloat16* p, float* v,
+                                           int nc) {
+  if (kVector) {
+    const uint4 x = __ldg(reinterpret_cast<const uint4*>(p));
+    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&x);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const float2 f = __bfloat1622float2(h[e]);
+      v[2 * e] = f.x;
+      v[2 * e + 1] = f.y;
+    }
+  } else {
+#pragma unroll
+    for (int e = 0; e < 8; ++e) v[e] = e < nc ? load_f(p + e) : 0.0f;
+  }
+}
+
+template <bool kVector>
+__device__ __forceinline__ void store_group(float* p, const float* v,
+                                            int nc) {
+  if (kVector) {
+    *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+  } else {
+    for (int e = 0; e < nc; ++e) p[e] = v[e];
+  }
+}
+
+template <bool kVector>
+__device__ __forceinline__ void store_group(__nv_bfloat16* p, const float* v,
+                                            int nc) {
+  if (kVector) {
+    uint4 x;
+    __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&x);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      h[e] = __floats2bfloat162_rn(v[2 * e], v[2 * e + 1]);
+    }
+    *reinterpret_cast<uint4*>(p) = x;
+  } else {
+    for (int e = 0; e < nc; ++e) store_f(p + e, v[e]);
+  }
+}
+
+constexpr int kFwdThreads = 256;
+
+// K1/K4. grid (rois, P): block (roi, ph) computes output row ph of one roi.
+// Dynamic shared memory: max_gy y taps, then P * max_gx x taps.
+template <typename T, bool kVector>
+__global__ void __launch_bounds__(kFwdThreads)
+roi_align_fwd_kernel(const T* __restrict__ feats,
+                     const float* __restrict__ rois,
+                     const int* __restrict__ roi_idx, T* __restrict__ out,
+                     int N, int R, int H, int W, int C, int P,
+                     float spatial_scale, int sampling_ratio, int bin_stride,
+                     int max_gy) {
+  constexpr int kVec = Group<T>::kVec;
+  extern __shared__ Tap taps[];
   const int roi = blockIdx.x;  // grouped: image * R + r; flat: r
-  const int c = blockIdx.y * blockDim.x + threadIdx.x;
-  if (c >= C) return;
+  const int ph = blockIdx.y;
+  const int groups = (C + kVec - 1) / kVec;
+  T* o = out + ((size_t)roi * P + ph) * P * C;
   const int n = image_of(roi, roi_idx, R);
-  T* o = out + (size_t)roi * P * P * C + c;
   if (n < 0 || n >= N) {  // the wrapper refuses such an index; never read
-    for (int i = 0; i < P * P; ++i) store_f(o + (size_t)i * C, 0.0f);
+    for (int i = threadIdx.x; i < P * C; i += blockDim.x) store_f(o + i, 0.0f);
     return;
   }
   const RoiGeom g = roi_geom(rois + (size_t)roi * 4, spatial_scale, P,
                              bin_stride, sampling_ratio, H, W);
+  Tap* sy = taps;
+  Tap* sx = taps + max_gy;
+  const float y0 = bin_origin(g.start_y, ph, bin_stride, g.bin_y);
+  for (int i = threadIdx.x; i < g.gy; i += blockDim.x) {
+    sy[i] = sample_tap(sample_at(y0, i, g.step_y), H);
+  }
+  for (int i = threadIdx.x; i < P * g.gx; i += blockDim.x) {
+    const int pw = i / g.gx;
+    const float x0 = bin_origin(g.start_x, pw, bin_stride, g.bin_x);
+    sx[i] = sample_tap(sample_at(x0, i - pw * g.gx, g.step_x), W);
+  }
+  __syncthreads();
 
-  const T* f = feats + (size_t)n * H * W * C + c;
-
-  for (int ph = 0; ph < P; ++ph) {
-    const float y0 = bin_origin(g.start_y, ph, bin_stride, g.bin_y);
-    for (int pw = 0; pw < P; ++pw) {
-      const float x0 = bin_origin(g.start_x, pw, bin_stride, g.bin_x);
-      float acc = 0.0f;
-      for (int iy = 0; iy < g.gy; ++iy) {
-        Tap ty;
-        if (!axis_tap(sample_at(y0, iy, g.step_y), H, &ty)) continue;
-        const T* row_l = f + (size_t)ty.low * W * C;
-        const T* row_h = f + (size_t)ty.high * W * C;
-        for (int ix = 0; ix < g.gx; ++ix) {
-          Tap tx;
-          if (!axis_tap(sample_at(x0, ix, g.step_x), W, &tx)) continue;
-          const size_t xl = (size_t)tx.low * C;
-          const size_t xh = (size_t)tx.high * C;
-          acc += ty.hw * (tx.hw * load_f(row_l + xl) +
-                          tx.lw * load_f(row_l + xh)) +
-                 ty.lw * (tx.hw * load_f(row_h + xl) +
-                          tx.lw * load_f(row_h + xh));
+  const size_t row = (size_t)W * C;
+  const T* f = feats + (size_t)n * H * row;
+  for (int item = threadIdx.x; item < P * groups; item += blockDim.x) {
+    const int pw = item / groups;
+    const int c0 = (item - pw * groups) * kVec;
+    const int nc = min(kVec, C - c0);
+    float acc[kVec];
+#pragma unroll
+    for (int e = 0; e < kVec; ++e) acc[e] = 0.0f;
+    for (int iy = 0; iy < g.gy; ++iy) {
+      const Tap ty = sy[iy];
+      if (ty.low < 0) continue;
+      const T* row_l = f + ty.low * row + c0;
+      const T* row_h = f + ty.high * row + c0;
+      for (int ix = 0; ix < g.gx; ++ix) {
+        const Tap tx = sx[pw * g.gx + ix];
+        if (tx.low < 0) continue;
+        const size_t xl = (size_t)tx.low * C;
+        const size_t xh = (size_t)tx.high * C;
+        float ll[kVec], lh[kVec], hl[kVec], hh[kVec];
+        load_group<kVector>(row_l + xl, ll, nc);
+        load_group<kVector>(row_l + xh, lh, nc);
+        load_group<kVector>(row_h + xl, hl, nc);
+        load_group<kVector>(row_h + xh, hh, nc);
+#pragma unroll
+        for (int e = 0; e < kVec; ++e) {
+          acc[e] = __fadd_rn(acc[e], bilerp(ty, tx, ll[e], lh[e], hl[e],
+                                            hh[e]));
         }
       }
-      store_f(o + (size_t)(ph * P + pw) * C, acc * g.inv_count);
     }
+#pragma unroll
+    for (int e = 0; e < kVec; ++e) acc[e] *= g.inv_count;
+    store_group<kVector>(o + (size_t)pw * C + c0, acc, nc);
   }
 }
 
@@ -237,16 +376,50 @@ __global__ void roi_align_bwd_kernel(const T* __restrict__ grad_out,
   }
 }
 
-template <typename T>
-void launch_fwd(const void* feats, const float* rois, const int* roi_idx,
-                void* out, int N, int R, int blocks, int H, int W, int C,
-                int P, float spatial_scale, int sampling_ratio,
-                int bin_stride, cudaStream_t s) {
-  const int threads = C >= 256 ? 256 : ((C + 31) / 32) * 32;
-  const dim3 grid(blocks, (C + threads - 1) / threads);
-  roi_align_fwd_kernel<T><<<grid, threads, 0, s>>>(
+template <typename T, bool kVector>
+int launch_fwd_t(const void* feats, const float* rois, const int* roi_idx,
+                 void* out, int N, int R, int blocks, int H, int W, int C,
+                 int P, float spatial_scale, int sampling_ratio,
+                 int bin_stride, cudaStream_t s) {
+  const int groups = (C + Group<T>::kVec - 1) / Group<T>::kVec;
+  // threads = channel groups (each thread keeps its group across the row's
+  // bins), or the whole row's (bin, group) items when groups are few
+  const int want = (groups >= 32 ? groups : P * groups) + 31;
+  const int threads = want / 32 * 32 < kFwdThreads ? want / 32 * 32
+                                                   : kFwdThreads;
+  const int max_gy = grid_size(INT_MAX, H, P * bin_stride, sampling_ratio);
+  const int max_gx = grid_size(INT_MAX, W, P * bin_stride, sampling_ratio);
+  const size_t smem = (size_t)(max_gy + P * max_gx) * sizeof(Tap);
+  auto kernel = roi_align_fwd_kernel<T, kVector>;
+  if (smem > 48 * 1024) {
+    const int err = (int)cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err) return err;
+  }
+  kernel<<<dim3(blocks, P), threads, smem, s>>>(
       (const T*)feats, rois, roi_idx, (T*)out, N, R, H, W, C, P,
-      spatial_scale, sampling_ratio, bin_stride);
+      spatial_scale, sampling_ratio, bin_stride, max_gy);
+  return (int)cudaGetLastError();
+}
+
+// The 16-byte form when every pixel's channels start on a 16-byte boundary
+// (C a multiple of the group, aligned base pointers), else the scalar form.
+template <typename T>
+int launch_fwd(const void* feats, const float* rois, const int* roi_idx,
+               void* out, int N, int R, int blocks, int H, int W, int C,
+               int P, float spatial_scale, int sampling_ratio,
+               int bin_stride, cudaStream_t s) {
+  if (((uintptr_t)feats | (uintptr_t)out) % 16) {
+    return (int)cudaErrorMisalignedAddress;
+  }
+  if (C % Group<T>::kVec == 0) {
+    return launch_fwd_t<T, true>(feats, rois, roi_idx, out, N, R, blocks, H,
+                                 W, C, P, spatial_scale, sampling_ratio,
+                                 bin_stride, s);
+  }
+  return launch_fwd_t<T, false>(feats, rois, roi_idx, out, N, R, blocks, H,
+                                W, C, P, spatial_scale, sampling_ratio,
+                                bin_stride, s);
 }
 
 template <typename T>
@@ -268,16 +441,15 @@ int fwd(const void* feats, const float* rois, const int* roi_idx, void* out,
   if (blocks == 0 || C == 0) return 0;
   cudaStream_t s = (cudaStream_t)stream;
   if (dtype == 0) {
-    launch_fwd<float>(feats, rois, roi_idx, out, N, R, blocks, H, W, C, P,
-                      spatial_scale, sampling_ratio, bin_stride, s);
-  } else if (dtype == 1) {
-    launch_fwd<__nv_bfloat16>(feats, rois, roi_idx, out, N, R, blocks, H, W,
-                              C, P, spatial_scale, sampling_ratio, bin_stride,
-                              s);
-  } else {
-    return (int)cudaErrorInvalidValue;
+    return launch_fwd<float>(feats, rois, roi_idx, out, N, R, blocks, H, W, C,
+                             P, spatial_scale, sampling_ratio, bin_stride, s);
   }
-  return (int)cudaGetLastError();
+  if (dtype == 1) {
+    return launch_fwd<__nv_bfloat16>(feats, rois, roi_idx, out, N, R, blocks,
+                                     H, W, C, P, spatial_scale,
+                                     sampling_ratio, bin_stride, s);
+  }
+  return (int)cudaErrorInvalidValue;
 }
 
 int bwd(const void* grad_out, const float* rois, const int* roi_idx,
@@ -301,9 +473,9 @@ int bwd(const void* grad_out, const float* rois, const int* roi_idx,
 
 }  // namespace
 
-// K1: feats (N, H, W, C) contiguous, dtype 0 = float32, 1 = bfloat16; rois
-// (N, R, 4) float32 contiguous; out (N, R, P, P, C) of the feature type.
-// Returns a cudaError_t (0 on success).
+// K1: feats (N, H, W, C) contiguous and 16-byte aligned, dtype 0 = float32,
+// 1 = bfloat16; rois (N, R, 4) float32 contiguous; out (N, R, P, P, C) of
+// the feature type, 16-byte aligned. Returns a cudaError_t (0 on success).
 extern "C" int mrcnn_roi_align_fwd(const void* feats, const float* rois,
                                    void* out, int dtype, int N, int R, int H,
                                    int W, int C, int P, float spatial_scale,

@@ -58,6 +58,7 @@ _SIGNATURES = {
                            _P),
     "mrcnn_nms_blocked": (_P, _P, _P, _I, _I, _F, _I, _P, _P, _P),
     "mrcnn_nms_small": (_P, _P, _I, _I, _F, _I, _P, _P, _P),
+    "mrcnn_nms_kept_cap": (),
 }
 
 _lock = threading.Lock()

@@ -9,7 +9,8 @@ plain torch version (CPU tensors) and a hand-written kernel (CUDA tensors,
 * :func:`nms_small` (K3) for N <= :data:`SMALL_MAX_N` boxes per problem:
   the fixpoint formulation of ``nms_fixpoint_mask`` plus compaction;
 * :func:`nms_blocked` (K2) for larger N: the blocked formulation of
-  ``nms_blocked_mask``, which stops at ``max_out`` survivors.
+  ``nms_blocked_mask``, which stops at ``max_out`` survivors; on the card
+  one launch that scans tiles of 64 candidates against the kept set.
 
 Both return the first ``max_out`` survivors of the exact greedy answer, so
 the choice between them changes no result.
@@ -124,16 +125,21 @@ def _checked_outputs(boxes, valid, max_out):
 def nms_blocked(boxes, valid, thresh, max_out):
     """K2 wrapper: boxes (B, N, 4) sorted by descending score, valid (B, N)
     -> positions (B, max_out) int32 into the sorted order, -1 padded, and
-    their validity (B, max_out) bool."""
+    their validity (B, max_out) bool. The kernel keeps up to
+    :func:`nms_kept_cap` kept boxes in shared memory; past that the rest go
+    to a (B, max_out - cap, 4) float32 scratch allocated here."""
     if boxes.device.type == "cpu":
         return nms_blocked_plain(boxes, valid, thresh, max_out)
     idx, mask = _checked_outputs(boxes, valid, max_out)
     b, n = valid.shape
-    scratch = torch.empty((b, n, -(-n // 64)), dtype=torch.int64,
-                          device=boxes.device)
+    spill, cap = None, nms_kept_cap()
+    if max_out > cap:
+        spill = torch.empty((b, max_out - cap, 4), dtype=torch.float32,
+                            device=boxes.device)
     err = _kernels.lib().mrcnn_nms_blocked(
-        boxes.data_ptr(), valid.data_ptr(), scratch.data_ptr(), b, n,
-        float(thresh), max_out, idx.data_ptr(), mask.data_ptr(),
+        boxes.data_ptr(), valid.data_ptr(),
+        None if spill is None else spill.data_ptr(), b, n, float(thresh),
+        max_out, idx.data_ptr(), mask.data_ptr(),
         _kernels.stream_ptr(boxes.device),
     )
     _kernels.check(err, "mrcnn_nms_blocked")
@@ -142,6 +148,11 @@ def nms_blocked(boxes, valid, thresh, max_out):
 
 
 nms_blocked.launches = 0
+
+
+def nms_kept_cap():
+    """Kept boxes that K2 holds in shared memory (``csrc/nms.cu``)."""
+    return _kernels.lib().mrcnn_nms_kept_cap()
 
 
 def nms_small(boxes, valid, thresh, max_out):

@@ -166,6 +166,16 @@ def _check_cuda(x, name, layout):
         raise ValueError(f"unsupported {name} dtype {x.dtype}")
 
 
+def _check_aligned(features):
+    """K1 and K4 read and write 16-byte channel groups: the features must
+    start on a 16-byte boundary (a fresh or channels-last tensor does; a
+    view at an odd offset into another may not)."""
+    if features.data_ptr() % 16:
+        raise ValueError("features must start on a 16-byte boundary, got "
+                         f"an address {features.data_ptr() % 16} bytes past "
+                         "one")
+
+
 def _check_args(out_size, sampling_ratio, bin_stride):
     if out_size < 1 or bin_stride < 1 or sampling_ratio < 0:
         raise ValueError("out_size, bin_stride >= 1 and sampling_ratio >= 0")
@@ -179,6 +189,7 @@ def _roi_align_forward(features, rois, out_size, spatial_scale,
                                        spatial_scale, sampling_ratio,
                                        bin_stride)
     _check_cuda(features, "features", "NHWC")
+    _check_aligned(features)
     n, h, w, c = features.shape
     _check_cuda_rois(rois, n, features.device)
     _check_args(out_size, sampling_ratio, bin_stride)
@@ -258,8 +269,9 @@ def roi_align_grouped(features, rois, out_size, spatial_scale,
     """RoIAlign on per-image rois; see :func:`roi_align_grouped_plain`.
 
     On the GPU ``features`` must be NHWC bytes: a contiguous (N, H, W, C)
-    tensor, which is what an NCHW ``torch.channels_last`` activation gives
-    under ``.permute(0, 2, 3, 1)`` without a copy. ``rois`` must be a
+    tensor starting on a 16-byte boundary, which is what an NCHW
+    ``torch.channels_last`` activation gives under ``.permute(0, 2, 3, 1)``
+    without a copy. ``rois`` must be a
     contiguous float32 (N, R, 4) tensor on the same device. With gradients
     on, the call goes through :class:`RoIAlignGroupedFn`, whose backward is
     K7; the rois never get a gradient.
@@ -361,6 +373,7 @@ def _roi_align_flat_forward(features, rois, roi_indices, out_size,
         return roi_align_plain(features, rois, roi_indices, out_size,
                                spatial_scale, sampling_ratio, bin_stride)
     _check_cuda(features, "features", "NHWC")
+    _check_aligned(features)
     _check_cuda_flat(rois, roi_indices, features.device)
     _check_args(out_size, sampling_ratio, bin_stride)
     n, h, w, c = features.shape
@@ -439,11 +452,11 @@ def roi_align(features, rois, roi_indices, out_size, spatial_scale,
               sampling_ratio=0, bin_stride=1):
     """RoIAlign on flat rois with per-roi image indices; see
     :func:`roi_align_plain`. On the GPU ``features`` must be contiguous
-    NHWC, ``rois`` a contiguous float32 (R, 4) tensor and ``roi_indices`` a
-    contiguous int32 (R,) tensor in [0, N) on the same device (checked on
-    the host before the launch). With gradients on, the call goes through
-    :class:`RoIAlignFn`, whose backward is K13; the rois never get a
-    gradient."""
+    NHWC on a 16-byte boundary, ``rois`` a contiguous float32 (R, 4) tensor
+    and ``roi_indices`` a contiguous int32 (R,) tensor in [0, N) on the
+    same device (checked on the host before the launch). With gradients
+    on, the call goes through :class:`RoIAlignFn`, whose backward is K13;
+    the rois never get a gradient."""
     if torch.is_grad_enabled() and features.requires_grad:
         return RoIAlignFn.apply(features, rois.detach(), roi_indices,
                                 out_size, spatial_scale, sampling_ratio,

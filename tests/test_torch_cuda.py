@@ -11,6 +11,7 @@ import torch
 
 from mask_rcnn_tpu_torch.ops import nms, roi_align
 from tests.oracles import random_boxes
+from tests.torch_nms_cases import NMS_EDGE_CASES, dyadic_boxes, nms_case
 
 pytestmark = pytest.mark.cuda
 
@@ -22,13 +23,17 @@ def dev():
     return torch.device("cuda")
 
 
+@pytest.mark.parametrize("c", [8, 70, 1024, 1032])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("bin_stride,sampling_ratio", [(1, 0), (2, 0),
                                                        (2, 2), (1, 3)])
 def test_roi_align_kernel_matches_plain(dev, dtype, bin_stride,
-                                        sampling_ratio):
+                                        sampling_ratio, c):
+    """C = 70 is not a multiple of K1's 16-byte channel group (the scalar
+    form, with a tail); 8, 1024 and 1032 are (one, 128 and 129 bf16
+    groups)."""
     rng = np.random.RandomState(0)
-    n, h, w, c = 2, 13, 21, 70  # c not a multiple of the thread tile
+    n, h, w = 2, 13, 21
     feats = torch.from_numpy(rng.randn(n, h, w, c).astype(np.float32))
     rois = np.stack([random_boxes(rng, 37, h * 16, w * 16, min_size=2)
                      for _ in range(n)])
@@ -48,18 +53,39 @@ def test_roi_align_kernel_matches_plain(dev, dtype, bin_stride,
     torch.testing.assert_close(got.float(), want, rtol=rtol, atol=1e-5)
 
 
-@pytest.mark.parametrize("b,n,max_out", [(2, 12000, 2000), (1, 6000, 1000),
-                                         (3, 1500, 300), (2, 100, 150),
-                                         (1, 1, 5)])
-def test_nms_blocked_kernel_matches_plain(dev, b, n, max_out):
-    rng = np.random.RandomState(n)
-    boxes = torch.from_numpy(np.stack(
-        [random_boxes(rng, n, 300, 400, min_size=4) for _ in range(b)]))
-    valid = torch.from_numpy(rng.rand(b, n) > 0.1)
-    got = nms.nms_blocked(boxes.to(dev), valid.to(dev), 0.7, max_out)
-    want = nms.nms_blocked_plain(boxes, valid, 0.7, max_out)
+def spill_case(rng):
+    """Small boxes scattered over a 4096 x 4096 image: nearly all survive,
+    so 5000 outputs keep more boxes than K2 holds in shared memory."""
+    boxes = dyadic_boxes(rng, 6000, 4096, 4, 16)[None]
+    return boxes, rng.rand(1, 6000) > 0.05, 0.7, 5000
+
+
+# (B, N, max_out) of random boxes at 0.7; the CPU tests' edge cases (n,
+# max_out, thresh, size, lo, hi, clusters or edge kind); "spill".
+NMS_BLOCKED_CASES = [(2, 12000, 2000), (1, 6000, 1000), (3, 1500, 300),
+                     (2, 100, 150), (1, 1, 5), *NMS_EDGE_CASES, "spill"]
+
+
+@pytest.mark.parametrize("case", NMS_BLOCKED_CASES, ids=str)
+def test_nms_blocked_kernel_matches_plain(dev, case):
+    if case == "spill":
+        boxes, valid, thresh, max_out = spill_case(np.random.RandomState(9))
+    elif len(case) == 3:
+        b, n, max_out = case
+        rng = np.random.RandomState(n)
+        boxes = np.stack([random_boxes(rng, n, 300, 400, min_size=4)
+                          for _ in range(b)])
+        valid, thresh = rng.rand(b, n) > 0.1, 0.7
+    else:
+        n, max_out, thresh, size, lo, hi, kind = case
+        boxes, _, valid = nms_case(0, n, size, lo, hi, kind)
+    boxes, valid = torch.from_numpy(boxes), torch.from_numpy(valid)
+    got = nms.nms_blocked(boxes.to(dev), valid.to(dev), thresh, max_out)
+    want = nms.nms_blocked_plain(boxes, valid, thresh, max_out)
     assert torch.equal(got[0].cpu(), want[0])
     assert torch.equal(got[1].cpu(), want[1])
+    if case == "spill":  # the kept set outgrew shared memory
+        assert want[1].sum() > nms.nms_kept_cap()
 
 
 @pytest.mark.parametrize("b,n,max_out", [(80, 256, 100), (4, 1024, 300),
@@ -468,13 +494,14 @@ def test_stem_kernel_refuses_gradients(dev):
         resnet.stem_forward(p, x)
 
 
+@pytest.mark.parametrize("c", [8, 70, 1024, 1032])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("bin_stride,sampling_ratio", [(1, 0), (2, 0),
                                                        (2, 2)])
 def test_flat_roi_align_kernels_match_plain(dev, dtype, bin_stride,
-                                            sampling_ratio):
+                                            sampling_ratio, c):
     rng = np.random.RandomState(1)
-    n, h, w, c = 3, 13, 21, 70
+    n, h, w = 3, 13, 21
     feats = torch.from_numpy(rng.randn(n, h, w, c).astype(np.float32))
     rois = random_boxes(rng, 53, h * 16, w * 16, min_size=2)
     rois[:3] = [[-20, -20, 40, 40], [h * 16 - 30, w * 16 - 30,
@@ -495,6 +522,22 @@ def test_flat_roi_align_kernels_match_plain(dev, dtype, bin_stride,
                                               sampling_ratio, bin_stride)
     torch.testing.assert_close(got.float(), want, rtol=rtol,
                                atol=1e-5 * want.abs().max().item())
+
+
+def test_roi_align_refuses_misaligned_features(dev):
+    """K1 and K4 read 16-byte channel groups: a contiguous view 4 bytes
+    into another tensor is refused, not read misaligned."""
+    buf = torch.zeros(2 * 4 * 4 * 8 + 4, device=dev)
+    feats = buf[1:1 + 2 * 4 * 4 * 8].view(2, 4, 4, 8)
+    assert feats.is_contiguous() and feats.data_ptr() % 16 == 4
+    rois = torch.zeros((2, 3, 4), device=dev)
+    idx = torch.zeros(3, dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError, match="16-byte"):
+        roi_align.roi_align_grouped(feats, rois, 7, 1 / 16)
+    with pytest.raises(ValueError, match="16-byte"):
+        roi_align.roi_align(feats, rois[0], idx, 7, 1 / 16)
+    aligned = buf[4:4 + 2 * 4 * 4 * 8].view(2, 4, 4, 8)  # 16 bytes in
+    roi_align.roi_align_grouped(aligned, rois, 7, 1 / 16)
 
 
 def test_flat_roi_align_refuses_bad_indices(dev):

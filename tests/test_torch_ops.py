@@ -16,6 +16,7 @@ from mask_rcnn_tpu.ops.roi_align import (
 )
 from mask_rcnn_tpu_torch.ops import anchors, boxes, nms, roi_align
 from tests.oracles import loc2bbox_np, nms_np, random_boxes, roi_align_np
+from tests.torch_nms_cases import NMS_EDGE_CASES, dyadic_boxes, nms_case
 
 
 def test_anchors_match_jax():
@@ -48,38 +49,7 @@ def test_boxes_match_jax_and_oracle():
     np.testing.assert_allclose(got, want, rtol=1e-6, atol=1e-6)
 
 
-def dyadic_boxes(rng, n, size, lo, hi, clusters=None):
-    """Integer boxes in a size x size image: every area, intersection and
-    union is exact in float32, so the NMS predicate has no rounding
-    ambiguity between implementations. With ``clusters``, boxes are jittered
-    copies of that many seeds, so that suppression (and chains of it) is
-    common, as among real proposals."""
-    k = clusters or n
-    y1 = rng.randint(0, size - lo, k)
-    x1 = rng.randint(0, size - lo, k)
-    hh = rng.randint(lo, hi, k)
-    ww = rng.randint(lo, hi, k)
-    if clusters:
-        pick = rng.randint(0, k, n)
-        jit = lambda e: rng.randint(-(e // 8) - 1, e // 8 + 2)  # noqa: E731
-        y1 = np.clip(y1[pick] + jit(hh[pick]), 0, size - lo)
-        x1 = np.clip(x1[pick] + jit(ww[pick]), 0, size - lo)
-        hh = np.maximum(hh[pick] + jit(hh[pick]), 1)
-        ww = np.maximum(ww[pick] + jit(ww[pick]), 1)
-    y2 = np.minimum(y1 + hh, size)
-    x2 = np.minimum(x1 + ww, size)
-    return np.stack([y1, x1, y2, x2], axis=1).astype(np.float32)
-
-
-def nms_case(seed, n, size, lo, hi, clusters):
-    rng = np.random.RandomState(seed)
-    bbox = dyadic_boxes(rng, n, size, lo, hi, clusters)
-    score = np.sort(rng.permutation(n).astype(np.float32) / n)[::-1].copy()
-    valid = rng.rand(n) > 0.05
-    return bbox, score, valid
-
-
-# (n, max_out, thresh, image size, box sizes lo..hi, clusters)
+# (n, max_out, thresh, image size, box sizes lo..hi, clusters or edge case)
 NMS_CASES = [
     (6000, 1000, 0.7, 1024, 8, 128, 1500),  # proposal path (blocked, K2)
     (256, 100, 0.5, 128, 4, 48, 30),  # decode path (fixpoint, K3)
@@ -88,20 +58,29 @@ NMS_CASES = [
 
 
 @pytest.mark.parametrize("n,max_out,thresh,size,lo,hi,clusters",
-                         NMS_CASES[:2])
+                         NMS_CASES[:2] + NMS_EDGE_CASES)
 def test_nms_padded_matches_jax(n, max_out, thresh, size, lo, hi, clusters):
+    """The port's nms_padded (K2's plain version nms_blocked_plain above
+    SMALL_MAX_N boxes) against the jitted JAX nms_padded, batched over
+    problems; above SMALL_MAX_N the JAX side takes nms_blocked_mask."""
     bbox, score, valid = nms_case(0, n, size, lo, hi, clusters)
     got_idx, got_mask = nms.nms_padded(
-        torch.from_numpy(bbox)[None], torch.from_numpy(score)[None], thresh,
-        max_out, valid=torch.from_numpy(valid)[None], presorted=True,
+        torch.from_numpy(bbox), torch.from_numpy(score), thresh, max_out,
+        valid=torch.from_numpy(valid), presorted=True,
     )
-    want_idx, want_mask = jax.jit(
+    # JAX takes its blocked path by itself from N = 4096; below, ask for it
+    block = 256 if nms.SMALL_MAX_N < n < 4096 else None
+    jax_nms = jax.jit(
         lambda b, s, v: jax_nms_padded(b, s, thresh, max_out, valid=v,
-                                       presorted=True)
-    )(bbox, score, valid)
-    np.testing.assert_array_equal(got_idx[0].numpy(), np.asarray(want_idx))
-    np.testing.assert_array_equal(got_mask[0].numpy(), np.asarray(want_mask))
-    assert got_mask.any()
+                                       presorted=True, block=block)
+    )
+    for i in range(len(bbox)):
+        want_idx, want_mask = jax_nms(bbox[i], score[i], valid[i])
+        np.testing.assert_array_equal(got_idx[i].numpy(),
+                                      np.asarray(want_idx))
+        np.testing.assert_array_equal(got_mask[i].numpy(),
+                                      np.asarray(want_mask))
+    assert got_mask.any() == valid.any()
 
 
 @pytest.mark.parametrize("n,max_out,thresh,size,lo,hi,clusters", NMS_CASES)
@@ -110,6 +89,7 @@ def test_nms_padded_matches_greedy_oracle(n, max_out, thresh, size, lo, hi,
     """Unsorted input through the internal stable sort, on both paths,
     truncation at ``max_out`` and -1 padding included."""
     bbox, score, valid = nms_case(1, n, size, lo, hi, clusters)
+    bbox, score, valid = bbox[0], score[0], valid[0]
     perm = np.random.RandomState(2).permutation(n)
     bbox, score, valid = bbox[perm], score[perm], valid[perm]
     idx, mask = nms.nms_padded(
