@@ -61,9 +61,9 @@ and train runs and the train loop), and as its last line
 Exits non-zero, and prints no result, when a phase fails or no CUDA device
 is present.
 
-With ``--against OTHER_CHECKOUT`` it runs none of the above: it times K1, K2
-and K4 of this checkout against another checkout's on the same inputs (see
-:func:`run_against`).
+With ``--against OTHER_CHECKOUT`` it runs none of the above: it times K1,
+K2, K4, K7, K13 and K10 of this checkout against another checkout's on the
+same inputs (see :func:`run_against`).
 """
 
 import argparse
@@ -104,6 +104,25 @@ def cuda_ms(torch, fn, warmup=3, iters=20):
     return start.elapsed_time(end) / iters
 
 
+def device_ms(torch, fn, iters=10):
+    """Device time per call: the summed time of the CUDA kernels that
+    ``iters`` calls of ``fn`` launch, from the profiler, over ``iters``.
+    Unlike :func:`cuda_ms` it leaves out the gaps in which the device waits
+    for the host, so it reads a kernel whose wrapper's host work takes
+    longer than the kernel."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA], acc_events=True) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    return sum(ev.self_device_time_total for ev in prof.key_averages()
+               if ev.device_type == torch.autograd.DeviceType.CUDA) \
+        / 1e3 / iters
+
+
 # The least time the card could take: bytes at
 # the H100's 3.35 TB/s, operations at the published peak for their type
 # (bf16 989 TFLOP/s on the tensor cores, float32 67 TFLOP/s on the CUDA
@@ -139,6 +158,50 @@ def align_samples(rois, feat_hw, p=7, s=2, scale=1 / 16):
     gy = np.clip(np.ceil(ext[:, 0] / full), 1, -(-feat_hw[0] // full))
     gx = np.clip(np.ceil(ext[:, 1] / full), 1, -(-feat_hw[1] // full))
     return float((gy * gx).sum()) * p * p
+
+
+def align_bwd_atomics(rois, feat_hw, p=7, s=2, scale=1 / 16):
+    """The float32 atomics a RoIAlign backward issues per channel for these
+    rois, counted from their sample taps: four per kept sample (one per tap,
+    as the earlier one-thread-per-channel K7 issued them), and one per
+    (roi, bin row, feature row, feature column) that the bin row's samples
+    reach (the merge of the redesigned K7/K13: a thread sums what lands on
+    one cell before its atomic); and, for a design that would merge a whole
+    roi first, one per (roi, cell) that any of its samples reaches."""
+    r = np.asarray(rois, np.float32).reshape(-1, 4) * np.float32(scale)
+    n = len(r)
+    ext = np.maximum(r[:, 2:] - r[:, :2], np.float32(1.0))
+    bins = ext / np.float32(p * s)
+
+    def taps(axis):  # (rois, p, grid) low and high taps, -1 where skipped
+        size = feat_hw[axis]
+        g = np.clip(np.ceil(bins[:, axis]), 1, -(-size // (p * s)))
+        grid = np.arange(int(g.max()), dtype=np.float32)
+        c = (r[:, axis, None, None]
+             + (np.arange(p, dtype=np.float32) * s)[:, None]
+             * bins[:, axis, None, None]
+             + (grid + np.float32(0.5)) * (bins[:, axis] / g)[:, None, None])
+        keep = (grid < g[:, None, None]) & (c >= -1) & (c <= size)
+        low = np.minimum(np.floor(np.maximum(c, 0)), size - 1).astype(int)
+        high = np.where(low >= size - 1, -1, low + 1)
+        return np.where(keep, low, -1), np.where(keep, high, -1), keep
+
+    def reached(low, high, size):  # distinct cells per leading index
+        occ = np.zeros(low.shape[:-1] + (size + 1,), bool)
+        lead = np.indices(low.shape)[:-1]
+        occ[(*lead, low)] = True
+        occ[(*lead, high)] = True
+        return occ[..., :size].sum(-1)
+
+    ylow, yhigh, ykeep = taps(0)
+    xlow, xhigh, xkeep = taps(1)
+    scatters = 4 * (ykeep.reshape(n, -1).sum(1)
+                    * xkeep.reshape(n, -1).sum(1)).sum()
+    rows = reached(ylow, yhigh, feat_hw[0])  # (rois, p)
+    all_rows = reached(ylow.reshape(n, -1), yhigh.reshape(n, -1), feat_hw[0])
+    cols = reached(xlow.reshape(n, -1), xhigh.reshape(n, -1), feat_hw[1])
+    return (int(scatters), int((rows * cols[:, None]).sum()),
+            int((all_rows * cols).sum()))
 
 
 def nms_stops(idx, mask, n, max_out):
@@ -435,11 +498,15 @@ def check_train_kernels(torch, results):
         g, rois, *args))
     plain_ms = cuda_ms(torch, lambda: roi_align.roi_align_grouped_backward_plain(
         g.float(), rois, *args), warmup=1, iters=3)
+    scatters, merged, roi_cells = align_bwd_atomics(rois.cpu().numpy(),
+                                                    args[0])
     print(f"K7 roi_align backward {tuple(g.shape)} -> {tuple(got.shape)}: "
           f"max|err| {err.max().item():.3e} (rtol {rtol:g}, atol "
           f"{atol:.3e}, {bad} outside), contiguous NHWC "
           f"{got.is_contiguous()}, kernel {ms:.4f} ms, plain f32 "
-          f"{plain_ms:.4f} ms")
+          f"{plain_ms:.4f} ms; a channel's taps {scatters}, merged cells "
+          f"{merged} ({merged * 1024 * 4 / 1e6:.1f} MB of float32 atomics; "
+          f"merged over whole rois {roi_cells})")
     if bad or not got.is_contiguous():
         raise AssertionError(f"K7 disagrees with its plain version at {bad} "
                              "values")
@@ -557,17 +624,23 @@ def check_train_kernels(torch, results):
     results["anchor_match"] = k9
 
 
-def stem_inputs(torch, n, dtype, seed=SEED):
-    """The stem's params (he_normal conv1 of ``init_extractor``, bn1 scale
-    and bias drawn around the init's 0.5 and 0) and a mean-subtracted
-    image-like (N, 832, 1344, 3) input, on the card in ``dtype``."""
+def stem_params(torch, gen):
+    """The stem's params on the CPU in float32: he_normal conv1 of
+    ``init_extractor``, bn1 scale and bias drawn around the init's 0.5 and
+    0."""
     from mask_rcnn_tpu_torch.models import resnet
 
-    gen = torch.Generator().manual_seed(seed)
     w = resnet.init_extractor(gen)["conv1"]["W"]
-    params = {"conv1": {"W": w},
-              "bn1": {"scale": torch.rand(64, generator=gen) * 0.5 + 0.25,
-                      "bias": torch.randn(64, generator=gen) * 0.1}}
+    return {"conv1": {"W": w},
+            "bn1": {"scale": torch.rand(64, generator=gen) * 0.5 + 0.25,
+                    "bias": torch.randn(64, generator=gen) * 0.1}}
+
+
+def stem_inputs(torch, n, dtype, seed=SEED):
+    """The stem's params (:func:`stem_params`) and a mean-subtracted
+    image-like (N, 832, 1344, 3) input, on the card in ``dtype``."""
+    gen = torch.Generator().manual_seed(seed)
+    params = stem_params(torch, gen)
     x = torch.rand((n, *TRAIN_HW, 3), generator=gen) * 255 - 120
     dev = torch.device("cuda")
     params = {k: {m: t.to(dev, dtype) for m, t in v.items()}
@@ -604,14 +677,20 @@ def check_stem_kernel(torch, results):
                 # largest value
                 rtol, atol = 2.0 ** -8, 1e-3 * top
             bad = (err > atol + rtol * want.abs()).sum().item()
-            ms = cuda_ms(torch, lambda: resnet.stem_forward(params, x))
+            # the wrapper's host work (checks, weight packing, casts) takes
+            # longer than the bf16 kernel: events around back-to-back calls
+            # read the host's pace, the profiler the device's work
+            wrapper_ms = cuda_ms(torch, lambda: resnet.stem_forward(params,
+                                                                    x))
+            ms = device_ms(torch, lambda: resnet.stem_forward(params, x))
             plain_ms = cuda_ms(torch, lambda: resnet.stem_forward_plain(
                 params, x))
             name = "bf16" if dtype == torch.bfloat16 else "f32"
             print(f"K10 stem {tuple(x.shape)} {name} -> {tuple(got.shape)}: "
                   f"max|err| {err.max().item():.3e} vs the float32 four-op "
                   f"stem (rtol {rtol:g}, atol {atol:.3e}, {bad} outside), "
-                  f"kernel {ms:.4f} ms, four-op stem in {name} "
+                  f"kernel {ms:.4f} ms on the device (wrapper calls back to "
+                  f"back {wrapper_ms:.4f} ms), four-op stem in {name} "
                   f"{plain_ms:.4f} ms")
             if bad:
                 raise AssertionError(f"K10 disagrees with the plain stem at "
@@ -619,10 +698,12 @@ def check_stem_kernel(torch, results):
             k10["max_abs_err"] = max(k10["max_abs_err"], err.max().item())
             if dtype == torch.bfloat16 and n == 1:  # the serving shape
                 ch, cw = -(-TRAIN_HW[0] // 2), -(-TRAIN_HW[1] // 2)
-                k10.update(ms=ms, plain_ms=plain_ms, **bound(
-                    nbytes(x, params["conv1"]["W"], got),
-                    2 * n * ch * cw * 64 * 147, "bf16"))
-            elif dtype == torch.float32 and n == 1:
+                k10.update(ms=ms, wrapper_ms=wrapper_ms, plain_ms=plain_ms,
+                           **bound(nbytes(x, params["conv1"]["W"], got),
+                                   2 * n * ch * cw * 64 * 147, "bf16"))
+            elif dtype == torch.bfloat16:
+                k10["b2_ms"], k10["b2_plain_ms"] = ms, plain_ms
+            elif n == 1:
                 k10["f32_ms"], k10["f32_plain_ms"] = ms, plain_ms
     results["stem_forward"] = k10
 
@@ -1384,7 +1465,7 @@ def kernel_group(name):
     """Coarse family of a CUDA kernel's name, for the profile's table."""
     low = name.lower()
     for group, keys in (
-        ("K10 stem", ("stem_kernel",)),
+        ("K10 stem", ("stem_f32_kernel", "stem_bf16_kernel")),
         ("K1 roi_align fwd", ("roi_align_fwd",)),
         ("K7 roi_align bwd", ("roi_align_bwd",)),
         ("K5 crop_resize fwd", ("crop_resize_fwd",)),
@@ -1454,15 +1535,23 @@ def check_outputs(imgs, bboxes, masks, labels, scores):
 
 
 AB_CASES = ("k1_bf16_1000", "k1_bf16_100", "k1_f32_1000", "k4_bf16_2000",
-            "k2_6000_1000", "k2_2x12000_2000")
+            "k2_6000_1000", "k2_2x12000_2000", "k7_bf16_2x512",
+            "k13_bf16_1300_700", "k10_bf16_b1", "k10_bf16_b2", "k10_f32_b1")
+# Cases whose kernels sum with float32 atomics: the two checkouts' outputs
+# differ in their last bits from run to run, so the A/B prints the largest
+# difference instead of bit-identity.
+AB_ATOMIC = ("k7_bf16_2x512", "k13_bf16_1300_700")
 
 
 def ab_inputs(torch, path):
     """The A/B cases' inputs at phase 2's shapes, from fixed seeds, saved
     with ``torch.save``: (1, 52, 84, 1024) features with 1000 and 100
     proposal-like rois (K1), (2, 52, 84, 1024) features with 1300 / 700 flat
-    rois (K4), 6000 and (2, 12000) score-sorted boxes with invalid rows
-    (K2)."""
+    rois (K4, and K13 with a (2000, 7, 7, 1024) gradient), 6000 and
+    (2, 12000) score-sorted boxes with invalid rows (K2), 2 x 512 rois and
+    a (2, 512, 7, 7, 1024) gradient (K7; the gradients are drawn on the
+    card from a seeded generator by :func:`ab_worker`), the stem's params
+    and (2, 832, 1344, 3) images (K10)."""
     rng = np.random.RandomState(SEED)
     fh, fw = TRAIN_HW[0] // 16, TRAIN_HW[1] // 16
     t = torch.from_numpy
@@ -1482,23 +1571,42 @@ def ab_inputs(torch, path):
                           for _ in range(b)])
         valid = (rng.rand(b, n) > 0.02) & (np.arange(n) < n - 100)
         x[f"nms_boxes_{n}"], x[f"nms_valid_{n}"] = t(boxes), t(valid)
+    x["rois_2x512"] = t(np.stack([proposal_like_boxes(rng, 512, *TRAIN_HW)
+                                  for _ in range(2)]))
+    gen = torch.Generator().manual_seed(SEED)
+    x["stem"] = stem_params(torch, gen)
+    x["images"] = torch.rand((2, *TRAIN_HW, 3), generator=gen) * 255 - 120
     torch.save(x, path)
 
 
 def ab_worker(tree, inputs, out):
     """One side of the A/B: with ``tree``'s package, build its kernels, run
     each case once for its output and time it (CUDA events, 3 warm-up and
-    20 timed calls); save outputs and times."""
+    20 timed calls; and the device's kernel time from the profiler, over
+    10 calls); save outputs and times."""
     sys.path.insert(0, os.path.abspath(tree))
     import torch
 
+    from mask_rcnn_tpu_torch.models import resnet
     from mask_rcnn_tpu_torch.ops import _kernels, nms, roi_align
 
     assert os.path.dirname(_kernels.__file__).startswith(
         os.path.abspath(tree)), _kernels.__file__
     _kernels.lib()
-    x = {k: v.cuda() for k, v in torch.load(inputs).items()}
+    x = torch.load(inputs)
+    params = x.pop("stem")
+    stem = {dt: {k: {m: t.cuda().to(dt) for m, t in v.items()}
+                 for k, v in params.items()}
+            for dt in (torch.bfloat16, torch.float32)}
+    x = {k: v.cuda() for k, v in x.items()}
     bf, bf2 = x["feats"].bfloat16(), x["feats2"].bfloat16()
+    img = {dt: x["images"].to(dt) for dt in (torch.bfloat16, torch.float32)}
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    g7 = torch.randn((2, 512, 7, 7, 1024), generator=gen,
+                     device="cuda").bfloat16()
+    g13 = torch.randn((2000, 7, 7, 1024), generator=gen,
+                      device="cuda").bfloat16()
+    fhw = (TRAIN_HW[0] // 16, TRAIN_HW[1] // 16)
     args = (7, 1 / 16, 0, 2)
     calls = {
         "k1_bf16_1000": lambda: roi_align.roi_align_grouped(
@@ -1513,24 +1621,36 @@ def ab_worker(tree, inputs, out):
             x["nms_boxes_6000"], x["nms_valid_6000"], 0.7, 1000),
         "k2_2x12000_2000": lambda: nms.nms_blocked(
             x["nms_boxes_12000"], x["nms_valid_12000"], 0.7, 2000),
+        "k7_bf16_2x512": lambda: roi_align.roi_align_grouped_backward(
+            g7, x["rois_2x512"], fhw, *args[1:]),
+        "k13_bf16_1300_700": lambda: roi_align.roi_align_backward(
+            g13, x["flat_rois"], x["flat_idx"], (2, *fhw), *args[1:]),
+        "k10_bf16_b1": lambda: resnet.stem_forward(
+            stem[torch.bfloat16], img[torch.bfloat16][:1]),
+        "k10_bf16_b2": lambda: resnet.stem_forward(
+            stem[torch.bfloat16], img[torch.bfloat16]),
+        "k10_f32_b1": lambda: resnet.stem_forward(
+            stem[torch.float32], img[torch.float32][:1]),
     }
-    outputs, ms = {}, {}
+    outputs, ms, dev_ms = {}, {}, {}
     with torch.no_grad():
         for name in AB_CASES:
             got = calls[name]()
             got = got if isinstance(got, tuple) else (got,)
             outputs[name] = tuple(g.cpu() for g in got)
             ms[name] = cuda_ms(torch, calls[name])
-    torch.save({"outputs": outputs, "ms": ms}, out)
+            dev_ms[name] = device_ms(torch, calls[name])
+    torch.save({"outputs": outputs, "ms": ms, "device_ms": dev_ms}, out)
 
 
 def run_against(torch, other) -> int:
-    """K1, K2 and K4 of this checkout against ``other``'s: the same inputs
-    (:func:`ab_inputs`) through each checkout's package in its own process,
-    in the order other, this, this, other. Prints each run's times, whether
-    this checkout's outputs equal the other's bit for bit (where not, how
-    many values of the first output differ and by how much), and one JSON
-    line."""
+    """K1, K2, K4, K7, K13 and K10 of this checkout against ``other``'s:
+    the same inputs (:func:`ab_inputs`) through each checkout's package in
+    its own process, in the order other, this, this, other. Prints each
+    run's times, whether this checkout's outputs equal the other's bit for
+    bit (where not, how many values of the first output differ and by how
+    much; for the atomic kernels K7 and K13 the largest difference, against
+    the largest value), and one JSON line."""
     import tempfile
 
     here = os.path.dirname(os.path.abspath(__file__))
@@ -1548,9 +1668,11 @@ def run_against(torch, other) -> int:
                            check=True, cwd=trees[side])
             res = torch.load(out)
             outputs.setdefault(side, res["outputs"])
-            runs.append({"tree": side, "ms": res["ms"]})
+            runs.append({"tree": side, "ms": res["ms"],
+                         "device_ms": res["device_ms"]})
             print(f"run {i} ({side}, {trees[side]}): " + ", ".join(
-                f"{k} {v:.4f} ms" for k, v in res["ms"].items()))
+                f"{k} {v:.4f} ms (device {res['device_ms'][k]:.4f})"
+                for k, v in res["ms"].items()))
     identical, differ = {}, {}
     for name in AB_CASES:
         pairs = list(zip(outputs["other"][name], outputs["this"][name]))
@@ -1561,9 +1683,13 @@ def run_against(torch, other) -> int:
             diff = (q - p).abs()
             differ[name] = {"values": int((diff > 0).sum()),
                             "of": diff.numel(),
-                            "max_abs": diff.max().item()}
+                            "max_abs": diff.max().item(),
+                            "max_abs_over_top": (diff.max()
+                                                 / p.abs().max()).item()}
             line += (f" ({differ[name]['values']} of {diff.numel()} values "
-                     f"differ, max |diff| {differ[name]['max_abs']:.3e})")
+                     f"differ, max |diff| {differ[name]['max_abs']:.3e}, "
+                     f"{differ[name]['max_abs_over_top']:.3e} of the largest"
+                     f"{'; float32 atomics' if name in AB_ATOMIC else ''})")
         print(line)
     print(json.dumps({"card": card, "identical": identical,
                       "differ": differ, "runs": runs}))
@@ -1573,8 +1699,8 @@ def run_against(torch, other) -> int:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--against", metavar="OTHER_CHECKOUT",
-                    help="time K1, K2 and K4 against another checkout's "
-                    "instead of the smoke")
+                    help="time K1, K2, K4, K7, K13 and K10 against another "
+                    "checkout's instead of the smoke")
     ap.add_argument("--ab-worker", nargs=3, help=argparse.SUPPRESS)
     a = ap.parse_args(argv)
     if a.ab_worker:

@@ -33,14 +33,32 @@
 //
 // K7 replaces the autodiff transpose of those einsums (XLA's transpose of
 // roi_align.py:282-301; the rois are stop_gradient, :113). It walks the same
-// samples as K1 (the same position code below, so the same skip decisions)
-// and scatters grad_out * tap weight / (gy * gx) to the four taps with
-// float32 atomicAdd into an NHWC buffer, one thread per channel, so that
-// neighbouring threads hit neighbouring addresses. What bounds it: the
-// atomics, 4 * gy * gx per output value, resolved in L2 (the float32 buffer
-// at the train shape, (2, 52, 84, 1024) = 36 MB, fits in it). The sums'
-// order follows the atomics' order, so the last bits vary from run to run;
-// the wrapper casts the buffer to the feature type at the end.
+// samples as K1 (the same tap code, so the same skip decisions) and
+// scatters grad_out / (gy * gx) * tap weights to the four taps with float32
+// atomics into an NHWC buffer, which the wrapper zeroes first and casts to
+// grad_out's type at the end. What bounds it on an H100: the atomics,
+// resolved in L2 (the float32 buffer at the train shape, (2, 52, 84, 1024)
+// = 36 MB, fits in it). It replaces a one-thread-per-channel kernel that
+// walked all P*P bins of a roi serially, recomputed every sample's taps and
+// issued four 4-byte atomics per sample and channel. This design, K1's
+// structure, one block per (roi, bin row ph):
+//   * the block computes the row's taps once into shared memory (K1's
+//     code), and orders the feature rows they feed into runs: each kept y
+//     sample feeds its low row (weight hw) and high row (lw);
+//   * each thread owns a (run, group of 4 channels): it walks the bin
+//     row's x samples in order, summing what lands on the same feature
+//     cell (the samples of a bin, and of the y samples that share a row)
+//     in registers, and issues one 16-byte float4 atomicAdd per cell when
+//     it moves on; a warp's atomic covers 512 contiguous bytes. At the
+//     train step's rois: 2.6x fewer atomic bytes and 10x fewer atomic
+//     instructions;
+//   * each sample's contribution keeps the old kernel's float32 expression
+//     ((grad * inv_count * ty weight) * tx weight, each product rounded);
+//     only the order of the float32 sums changes. They were never
+//     deterministic: the atomics' order varies from run to run.
+// A C that is not a multiple of 4 takes the scalar form (scalar loads and
+// atomics); the wrapper refuses a grad_out that does not start on a
+// 16-byte boundary.
 //
 // K4 and K13 are the same two kernels on flat rois (R, 4) with a per-roi
 // image index (R,) int32: K4 replaces mask_rcnn_tpu/ops/roi_align.py::
@@ -326,52 +344,184 @@ roi_align_fwd_kernel(const T* __restrict__ feats,
   }
 }
 
-__device__ __forceinline__ void scatter(float* p, float v) {
-  if (v != 0.0f) atomicAdd(p, v);
+// K7/K13 work on groups of 4 channels for both types (16 bytes of the
+// float32 buffer, one float4 atomic; grad_out read 8 bytes a thread in
+// bf16), so that a warp's atomic covers 128 neighbouring channels: 512
+// contiguous bytes, every 32-byte sector of it whole. (Groups of 8 bf16
+// would split each sector between two atomic instructions.)
+constexpr int kBwdVec = 4;
+
+template <bool kVector>
+__device__ __forceinline__ void load4(const float* p, float* v, int nc) {
+  if (kVector) {
+    const float4 x = __ldg(reinterpret_cast<const float4*>(p));
+    v[0] = x.x;
+    v[1] = x.y;
+    v[2] = x.z;
+    v[3] = x.w;
+  } else {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) v[e] = e < nc ? __ldg(p + e) : 0.0f;
+  }
 }
 
-template <typename T>
-__global__ void roi_align_bwd_kernel(const T* __restrict__ grad_out,
-                                     const float* __restrict__ rois,
-                                     const int* __restrict__ roi_idx,
-                                     float* __restrict__ grad_feats, int N,
-                                     int R, int H, int W, int C, int P,
-                                     float spatial_scale, int sampling_ratio,
-                                     int bin_stride) {
+template <bool kVector>
+__device__ __forceinline__ void load4(const __nv_bfloat16* p, float* v,
+                                      int nc) {
+  if (kVector) {
+    const uint2 x = __ldg(reinterpret_cast<const uint2*>(p));
+    const float2 lo = __bfloat1622float2(
+        *reinterpret_cast<const __nv_bfloat162*>(&x.x));
+    const float2 hi = __bfloat1622float2(
+        *reinterpret_cast<const __nv_bfloat162*>(&x.y));
+    v[0] = lo.x;
+    v[1] = lo.y;
+    v[2] = hi.x;
+    v[3] = hi.y;
+  } else {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) v[e] = e < nc ? load_f(p + e) : 0.0f;
+  }
+}
+
+// One group's float32 sums into the float32 buffer: a float4 atomicAdd
+// (Hopper's vector atomic, 4 channels an instruction) in the vector form,
+// else one per channel; sums of 0 are not issued.
+template <bool kVector>
+__device__ __forceinline__ void scatter4(float* p, const float* a, int nc) {
+  if (kVector) {
+    if (a[0] != 0.0f || a[1] != 0.0f || a[2] != 0.0f || a[3] != 0.0f) {
+      atomicAdd(reinterpret_cast<float4*>(p),
+                make_float4(a[0], a[1], a[2], a[3]));
+    }
+  } else {
+    for (int e = 0; e < nc; ++e) {
+      if (a[e] != 0.0f) atomicAdd(p + e, a[e]);
+    }
+  }
+}
+
+constexpr int kBwdThreads = 256;
+
+// K7/K13. grid (rois, P): block (roi, ph) scatters output row ph of one
+// roi. Dynamic shared memory: max_gy y taps, P * max_gx x taps, then the
+// row entries (2 * max_gy rows and weights) and the start of each run of
+// entries on one feature row (2 * max_gy + 1).
+template <typename T, bool kVector>
+__global__ void __launch_bounds__(kBwdThreads)
+roi_align_bwd_kernel(const T* __restrict__ grad_out,
+                     const float* __restrict__ rois,
+                     const int* __restrict__ roi_idx,
+                     float* __restrict__ grad_feats, int N, int R, int H,
+                     int W, int C, int P, float spatial_scale,
+                     int sampling_ratio, int bin_stride, int max_gy) {
+  extern __shared__ Tap taps[];
   const int roi = blockIdx.x;  // grouped: image * R + r; flat: r
-  const int c = blockIdx.y * blockDim.x + threadIdx.x;
-  if (c >= C) return;
+  const int ph = blockIdx.y;
   const int n = image_of(roi, roi_idx, R);
   if (n < 0 || n >= N) return;  // refused by the wrapper; never written
   const RoiGeom g = roi_geom(rois + (size_t)roi * 4, spatial_scale, P,
                              bin_stride, sampling_ratio, H, W);
+  // K1's taps, from the same code: the same skip decisions
+  Tap* sy = taps;
+  Tap* sx = taps + max_gy;
+  int* erow = reinterpret_cast<int*>(sx + P * (size_t)g.gx);
+  float* ew = reinterpret_cast<float*>(erow + 2 * max_gy);
+  int* run = reinterpret_cast<int*>(ew + 2 * max_gy);
+  __shared__ int n_runs;
+  const float y0 = bin_origin(g.start_y, ph, bin_stride, g.bin_y);
+  for (int i = threadIdx.x; i < g.gy; i += blockDim.x) {
+    sy[i] = sample_tap(sample_at(y0, i, g.step_y), H);
+  }
+  for (int i = threadIdx.x; i < P * g.gx; i += blockDim.x) {
+    const int pw = i / g.gx;
+    const float x0 = bin_origin(g.start_x, pw, bin_stride, g.bin_x);
+    sx[i] = sample_tap(sample_at(x0, i - pw * g.gx, g.step_x), W);
+  }
+  __syncthreads();
+  // The row entries of this bin row: every kept y sample feeds its low row
+  // with weight hw and its high row with lw (none when the two coincide at
+  // the border, where lw = 0). Lows rise with the sample, highs are lows +
+  // 1, so one merge orders the entries by row; a run is the entries of one
+  // feature row.
+  if (threadIdx.x == 0) {
+    int ne = 0, nr = 0, a = 0, b = 0;
+    while (true) {
+      while (a < g.gy && sy[a].low < 0) ++a;
+      while (b < g.gy && (sy[b].low < 0 || sy[b].high == sy[b].low)) ++b;
+      if (a >= g.gy && b >= g.gy) break;
+      const bool take_low =
+          b >= g.gy || (a < g.gy && sy[a].low <= sy[b].high);
+      const int row = take_low ? sy[a].low : sy[b].high;
+      if (ne == 0 || erow[ne - 1] != row) run[nr++] = ne;
+      erow[ne] = row;
+      ew[ne++] = take_low ? sy[a++].hw : sy[b++].lw;
+    }
+    run[nr] = ne;
+    n_runs = nr;
+  }
+  __syncthreads();
 
-  float* f = grad_feats + (size_t)n * H * W * C + c;
-  const T* go = grad_out + (size_t)roi * P * P * C + c;
-
-  for (int ph = 0; ph < P; ++ph) {
-    const float y0 = bin_origin(g.start_y, ph, bin_stride, g.bin_y);
+  // Each item is (run, 4-channel group): the thread walks the row's x
+  // samples in order (their low columns never fall), merges what lands on
+  // the same feature cell in two pending groups (columns pc and pc + 1)
+  // and issues a group's atomic when the walk leaves its column. Each
+  // sample's contribution keeps the one-thread-per-channel kernel's float32
+  // expression, (grad * inv_count * ty weight) * tx weight, rounded before
+  // it is summed; only the order of the sums changes.
+  constexpr int kVec = kBwdVec;
+  const int groups = (C + kVec - 1) / kVec;
+  const T* go = grad_out + ((size_t)roi * P + ph) * P * C;
+  for (int item = threadIdx.x; item < n_runs * groups; item += blockDim.x) {
+    const int r = item / groups;
+    const int c0 = (item - r * groups) * kVec;
+    const int nc = min(kVec, C - c0);
+    const int e0 = run[r], e1 = run[r + 1];
+    float* dst = grad_feats + ((size_t)n * H + erow[e0]) * W * C + c0;
+    float a0[kVec], a1[kVec];
+#pragma unroll
+    for (int k = 0; k < kVec; ++k) a0[k] = a1[k] = 0.0f;
+    int pc = -2;
     for (int pw = 0; pw < P; ++pw) {
-      const float d = load_f(go + (size_t)(ph * P + pw) * C) * g.inv_count;
-      if (d == 0.0f) continue;
-      const float x0 = bin_origin(g.start_x, pw, bin_stride, g.bin_x);
-      for (int iy = 0; iy < g.gy; ++iy) {
-        Tap ty;
-        if (!axis_tap(sample_at(y0, iy, g.step_y), H, &ty)) continue;
-        float* row_l = f + (size_t)ty.low * W * C;
-        float* row_h = f + (size_t)ty.high * W * C;
-        const float dl = d * ty.hw, dh = d * ty.lw;
-        for (int ix = 0; ix < g.gx; ++ix) {
-          Tap tx;
-          if (!axis_tap(sample_at(x0, ix, g.step_x), W, &tx)) continue;
-          const size_t xl = (size_t)tx.low * C;
-          const size_t xh = (size_t)tx.high * C;
-          scatter(row_l + xl, dl * tx.hw);
-          scatter(row_l + xh, dl * tx.lw);
-          scatter(row_h + xl, dh * tx.hw);
-          scatter(row_h + xh, dh * tx.lw);
+      float d[kVec];
+      load4<kVector>(go + (size_t)pw * C + c0, d, nc);
+#pragma unroll
+      for (int k = 0; k < kVec; ++k) d[k] = __fmul_rn(d[k], g.inv_count);
+      for (int ix = 0; ix < g.gx; ++ix) {
+        const Tap tx = sx[pw * g.gx + ix];
+        if (tx.low < 0) continue;
+        if (tx.low != pc) {
+          if (pc >= 0) scatter4<kVector>(dst + (size_t)pc * C, a0, nc);
+          if (tx.low == pc + 1) {
+#pragma unroll
+            for (int k = 0; k < kVec; ++k) {
+              a0[k] = a1[k];
+              a1[k] = 0.0f;
+            }
+          } else {
+            if (pc >= 0) {
+              scatter4<kVector>(dst + (size_t)(pc + 1) * C, a1, nc);
+            }
+#pragma unroll
+            for (int k = 0; k < kVec; ++k) a0[k] = a1[k] = 0.0f;
+          }
+          pc = tx.low;
+        }
+        const bool two = tx.high != tx.low;
+        for (int e = e0; e < e1; ++e) {
+          const float wy = ew[e];
+#pragma unroll
+          for (int k = 0; k < kVec; ++k) {
+            const float dl = __fmul_rn(d[k], wy);
+            a0[k] = __fadd_rn(a0[k], __fmul_rn(dl, tx.hw));
+            if (two) a1[k] = __fadd_rn(a1[k], __fmul_rn(dl, tx.lw));
+          }
         }
       }
+    }
+    if (pc >= 0) {
+      scatter4<kVector>(dst + (size_t)pc * C, a0, nc);
+      if (pc + 1 < W) scatter4<kVector>(dst + (size_t)(pc + 1) * C, a1, nc);
     }
   }
 }
@@ -422,16 +572,51 @@ int launch_fwd(const void* feats, const float* rois, const int* roi_idx,
                                 bin_stride, s);
 }
 
-template <typename T>
-void launch_bwd(const void* grad_out, const float* rois, const int* roi_idx,
-                float* grad_feats, int N, int R, int blocks, int H, int W,
-                int C, int P, float spatial_scale, int sampling_ratio,
-                int bin_stride, cudaStream_t s) {
-  const int threads = C >= 256 ? 256 : ((C + 31) / 32) * 32;
-  const dim3 grid(blocks, (C + threads - 1) / threads);
-  roi_align_bwd_kernel<T><<<grid, threads, 0, s>>>(
+template <typename T, bool kVector>
+int launch_bwd_t(const void* grad_out, const float* rois, const int* roi_idx,
+                 float* grad_feats, int N, int R, int blocks, int H, int W,
+                 int C, int P, float spatial_scale, int sampling_ratio,
+                 int bin_stride, cudaStream_t s) {
+  const int groups = (C + kBwdVec - 1) / kBwdVec;
+  // threads: two runs' worth of channel groups (a bin row feeds 2-5 feature
+  // rows at the main path's shapes), at most kBwdThreads
+  const int want = (2 * groups + 31) / 32 * 32;
+  const int threads = want < kBwdThreads ? want : kBwdThreads;
+  const int max_gy = grid_size(INT_MAX, H, P * bin_stride, sampling_ratio);
+  const int max_gx = grid_size(INT_MAX, W, P * bin_stride, sampling_ratio);
+  const size_t smem = (size_t)(max_gy + P * max_gx) * sizeof(Tap) +
+                      (size_t)(6 * max_gy + 1) * sizeof(int);
+  auto kernel = roi_align_bwd_kernel<T, kVector>;
+  if (smem > 48 * 1024) {
+    const int err = (int)cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err) return err;
+  }
+  kernel<<<dim3(blocks, P), threads, smem, s>>>(
       (const T*)grad_out, rois, roi_idx, grad_feats, N, R, H, W, C, P,
-      spatial_scale, sampling_ratio, bin_stride);
+      spatial_scale, sampling_ratio, bin_stride, max_gy);
+  return (int)cudaGetLastError();
+}
+
+// The vector form when every cell's channels start on a 16-byte boundary
+// of the float32 buffer (C a multiple of 4, aligned base pointers), else the
+// scalar form.
+template <typename T>
+int launch_bwd(const void* grad_out, const float* rois, const int* roi_idx,
+               float* grad_feats, int N, int R, int blocks, int H, int W,
+               int C, int P, float spatial_scale, int sampling_ratio,
+               int bin_stride, cudaStream_t s) {
+  if (((uintptr_t)grad_out | (uintptr_t)grad_feats) % 16) {
+    return (int)cudaErrorMisalignedAddress;
+  }
+  if (C % kBwdVec == 0) {
+    return launch_bwd_t<T, true>(grad_out, rois, roi_idx, grad_feats, N, R,
+                                 blocks, H, W, C, P, spatial_scale,
+                                 sampling_ratio, bin_stride, s);
+  }
+  return launch_bwd_t<T, false>(grad_out, rois, roi_idx, grad_feats, N, R,
+                                blocks, H, W, C, P, spatial_scale,
+                                sampling_ratio, bin_stride, s);
 }
 
 int fwd(const void* feats, const float* rois, const int* roi_idx, void* out,
@@ -459,16 +644,16 @@ int bwd(const void* grad_out, const float* rois, const int* roi_idx,
   if (blocks == 0 || C == 0) return 0;
   cudaStream_t s = (cudaStream_t)stream;
   if (dtype == 0) {
-    launch_bwd<float>(grad_out, rois, roi_idx, grad_feats, N, R, blocks, H,
-                      W, C, P, spatial_scale, sampling_ratio, bin_stride, s);
-  } else if (dtype == 1) {
-    launch_bwd<__nv_bfloat16>(grad_out, rois, roi_idx, grad_feats, N, R,
-                              blocks, H, W, C, P, spatial_scale,
-                              sampling_ratio, bin_stride, s);
-  } else {
-    return (int)cudaErrorInvalidValue;
+    return launch_bwd<float>(grad_out, rois, roi_idx, grad_feats, N, R,
+                             blocks, H, W, C, P, spatial_scale,
+                             sampling_ratio, bin_stride, s);
   }
-  return (int)cudaGetLastError();
+  if (dtype == 1) {
+    return launch_bwd<__nv_bfloat16>(grad_out, rois, roi_idx, grad_feats, N,
+                                     R, blocks, H, W, C, P, spatial_scale,
+                                     sampling_ratio, bin_stride, s);
+  }
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -485,9 +670,10 @@ extern "C" int mrcnn_roi_align_fwd(const void* feats, const float* rois,
              spatial_scale, sampling_ratio, bin_stride, stream);
 }
 
-// K7: grad_out (N, R, P, P, C) contiguous, dtype 0 = float32, 1 = bfloat16;
-// rois (N, R, 4) float32; grad_feats (N, H, W, C) float32, zeroed by the
-// caller, accumulated into. Returns a cudaError_t (0 on success).
+// K7: grad_out (N, R, P, P, C) contiguous and 16-byte aligned, dtype 0 =
+// float32, 1 = bfloat16; rois (N, R, 4) float32; grad_feats (N, H, W, C)
+// float32, 16-byte aligned, zeroed by the caller, accumulated into. Returns
+// a cudaError_t (0 on success).
 extern "C" int mrcnn_roi_align_bwd(const void* grad_out, const float* rois,
                                    float* grad_feats, int dtype, int N, int R,
                                    int H, int W, int C, int P,

@@ -91,7 +91,12 @@ class MaskRCNNResNet:
         )
         device = torch.device(device)
         if pretrained_model:
-            params = load_params(pretrained_model, device)
+            # The config's names, shapes and dtypes on the meta device (no
+            # weights drawn): a mismatched npz raises here, as the JAX
+            # constructor's conform_params does, not in a later predict.
+            with torch.device("meta"):
+                like = init_params(config, torch.Generator(), "meta")
+            params = load_params(pretrained_model, device, like=like)
         else:
             gen = torch.Generator().manual_seed(rng_seed)
             params = init_params(config, gen, device)

@@ -80,6 +80,23 @@ def stem_forward_plain(params, x):
 
 
 _STEM_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+STEM_TAP_GROUP = 24  # one ky's 21 (kx, c) taps, padded to an even 24
+STEM_K = 176  # 7 * 24 = 168 taps, padded to 11 steps of 16
+
+
+def pack_stem_weights(w):
+    """conv1's (64, 3, 7, 7) OIHW weights -> the (64, 176) bfloat16 matrix
+    that K10's bf16 form multiplies on the tensor cores: column
+    ``ky * 24 + kx * 3 + c`` holds ``W[o, c, ky, kx]`` (rounded to bf16, as
+    the JAX stem casts its weights to the input type), zero on the padded
+    taps (21-23 of each ky, and 168-175). The padding makes two
+    neighbouring taps two neighbouring values of one input row."""
+    o = w.shape[0]
+    out = torch.zeros((o, STEM_K), dtype=torch.bfloat16, device=w.device)
+    # (o, ky, kx, c) into columns ky * 24 + kx * 3 + c: one strided copy
+    taps = out[:, :7 * STEM_TAP_GROUP].view(o, 7, STEM_TAP_GROUP // 3, 3)
+    taps[:, :, :7] = w.detach().permute(0, 2, 3, 1)
+    return out
 
 
 def stem_wants_grad(params, x) -> bool:
@@ -101,9 +118,11 @@ def stem_forward(params, x):
 
     A CPU tensor takes :func:`stem_forward_plain`; a CUDA tensor (contiguous
     NHWC, float32 or bfloat16, with the params of the same type) takes
-    kernel K10, which sums the conv in float32, applies the affine and relu
-    in float32 and rounds the pooled result once. K10 has no backward: with
-    gradients wanted (:func:`stem_wants_grad`) the call raises."""
+    kernel K10, which sums the conv in float32 (bf16: on the tensor cores,
+    with the weights of :func:`pack_stem_weights`; float32: on the CUDA
+    cores), applies the affine and relu in float32 and rounds the pooled
+    result once. K10 has no backward: with gradients wanted
+    (:func:`stem_wants_grad`) the call raises."""
     if x.device.type == "cpu":
         return stem_forward_plain(params, x)
     if stem_wants_grad(params, x):
@@ -128,9 +147,11 @@ def stem_forward(params, x):
             raise ValueError(f"stem_forward: {name} is on {t.device}, "
                              f"x on {x.device}")
     n, h, wd, _ = x.shape
-    # (ky, kx, c, o) rows of float32, the layout the kernel stages in
-    # shared memory
-    wk = w.detach().permute(2, 3, 1, 0).reshape(147, 64).float().contiguous()
+    if x.dtype == torch.bfloat16:
+        wk = pack_stem_weights(w)
+    else:  # (ky, kx, c, o) rows of float32, staged in shared memory
+        wk = w.detach().permute(2, 3, 1, 0).reshape(147, 64).float() \
+            .contiguous()
     scale = scale.detach().float().contiguous()
     bias = bias.detach().float().contiguous()
     ph, pw = (h + 3) // 4, (wd + 3) // 4

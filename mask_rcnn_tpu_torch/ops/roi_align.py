@@ -166,14 +166,20 @@ def _check_cuda(x, name, layout):
         raise ValueError(f"unsupported {name} dtype {x.dtype}")
 
 
-def _check_aligned(features):
-    """K1 and K4 read and write 16-byte channel groups: the features must
-    start on a 16-byte boundary (a fresh or channels-last tensor does; a
-    view at an odd offset into another may not)."""
-    if features.data_ptr() % 16:
-        raise ValueError("features must start on a 16-byte boundary, got "
-                         f"an address {features.data_ptr() % 16} bytes past "
-                         "one")
+def _check_aligned(x, name="features"):
+    """K1/K4 and K7/K13 read and write 16-byte channel groups: their input
+    must start on a 16-byte boundary (a fresh or channels-last tensor does;
+    a view at an odd offset into another may not)."""
+    if x.data_ptr() % 16:
+        raise ValueError(f"{name} must start on a 16-byte boundary, got an "
+                         f"address {x.data_ptr() % 16} bytes past one")
+
+
+def _aligned(grad):
+    """The incoming gradient, contiguous and on a 16-byte boundary (copied
+    when it is a view at an odd offset), as K7 and K13 take it."""
+    grad = grad.contiguous()
+    return grad if grad.data_ptr() % 16 == 0 else grad.clone()
 
 
 def _check_args(out_size, sampling_ratio, bin_stride):
@@ -214,12 +220,14 @@ def roi_align_grouped_backward(grad_out, rois, feat_hw, spatial_scale,
     NCHW view is channels-last, like the backbone's activations). A CPU
     tensor takes :func:`roi_align_grouped_backward_plain`; a CUDA tensor
     takes the kernel, which sums in a float32 buffer with atomics (so the
-    sums' order, and their last bits, vary from run to run)."""
+    sums' order, and their last bits, vary from run to run); it must start
+    on a 16-byte boundary, as a fresh contiguous tensor does."""
     if grad_out.device.type == "cpu":
         return roi_align_grouped_backward_plain(
             grad_out, rois, feat_hw, spatial_scale, sampling_ratio,
             bin_stride)
     _check_cuda(grad_out, "grad_out", "NRPPC")
+    _check_aligned(grad_out, "grad_out")
     n, r, p, p2, c = grad_out.shape
     if p != p2:
         raise ValueError(f"grad_out must have square bins, got {p}x{p2}")
@@ -259,7 +267,7 @@ class RoIAlignGroupedFn(torch.autograd.Function):
     @staticmethod
     def backward(ctx, grad_out):
         (rois,) = ctx.saved_tensors
-        grad = roi_align_grouped_backward(grad_out.contiguous(), rois,
+        grad = roi_align_grouped_backward(_aligned(grad_out), rois,
                                           *ctx.args)
         return grad, None, None, None, None, None
 
@@ -396,13 +404,14 @@ def roi_align_backward(grad_out, rois, roi_indices, feat_shape,
     """K13 wrapper, the flat RoIAlign backward: grad_out (R, P, P, C) -> the
     features' grad (N, H, W, C), contiguous NHWC in grad_out's dtype. A CPU
     tensor takes :func:`roi_align_backward_plain`; a CUDA tensor the kernel
-    (K7's sample walk with the roi's image from its index; float32 atomics,
-    cast at the end)."""
+    (K7's kernel with the roi's image from its index; float32 atomics,
+    cast at the end; grad_out on a 16-byte boundary)."""
     if grad_out.device.type == "cpu":
         return roi_align_backward_plain(grad_out, rois, roi_indices,
                                         feat_shape, spatial_scale,
                                         sampling_ratio, bin_stride)
     _check_cuda(grad_out, "grad_out", "RPPC")
+    _check_aligned(grad_out, "grad_out")
     r, p, p2, c = grad_out.shape
     if p != p2:
         raise ValueError(f"grad_out must have square bins, got {p}x{p2}")
@@ -443,7 +452,7 @@ class RoIAlignFn(torch.autograd.Function):
     @staticmethod
     def backward(ctx, grad_out):
         rois, roi_indices = ctx.saved_tensors
-        grad = roi_align_backward(grad_out.contiguous(), rois, roi_indices,
+        grad = roi_align_backward(_aligned(grad_out), rois, roi_indices,
                                   *ctx.args)
         return grad, None, None, None, None, None, None
 

@@ -96,10 +96,11 @@ def save_params(path: str, params) -> None:
     np.savez(path, **params_to_numpy(params))
 
 
-def conform_params(tree, like):
+def conform_params(tree, like, device=None):
     """Check that ``tree`` has exactly ``like``'s parameter names and
-    shapes, and cast its leaves to ``like``'s dtypes and device (the JAX
-    package's ``conform_params``)."""
+    shapes, and cast its leaves to ``like``'s dtypes and to ``device``
+    (default: each ``like`` leaf's own; the JAX package's
+    ``conform_params``). ``like`` may live on the meta device."""
     flat = flatten_params(tree)
     want = flatten_params(like)
     missing = set(want) - set(flat)
@@ -114,14 +115,16 @@ def conform_params(tree, like):
             raise ValueError(f"shape mismatch at {k}: "
                              f"{tuple(flat[k].shape)} vs {tuple(v.shape)}")
     return unflatten_params({
-        k: flat[k].to(device=v.device, dtype=v.dtype) for k, v in want.items()
+        k: flat[k].to(device=device or v.device, dtype=v.dtype)
+        for k, v in want.items()
     })
 
 
 def load_params(path: str, device="cpu", like=None):
-    """Read an npz written by either package's ``save_params``. With
-    ``like`` (a params tree) the names and shapes are checked against it
-    and the leaves take its dtypes and device."""
+    """Read an npz written by either package's ``save_params`` onto
+    ``device``. With ``like`` (a params tree, on any device or the meta
+    device) the names and shapes are checked against it and the leaves
+    take its dtypes."""
     try:
         with np.load(path) as data:
             flat = {k: data[k] for k in data.files}
@@ -131,7 +134,9 @@ def load_params(path: str, device="cpu", like=None):
             "loads the npz either package's save_params writes."
         ) from e
     params = params_from_numpy(flat, device)
-    return conform_params(params, like) if like is not None else params
+    if like is None:
+        return params
+    return conform_params(params, like, torch.device(device))
 
 
 def train_state_from_numpy(params_flat: Dict[str, np.ndarray],

@@ -195,3 +195,70 @@ def test_chip_smoke_fails_without_gpu(tmp_path):
     res = run_python([str(lone)], str(tmp_path))
     assert res.returncode != 0
     assert '"ok": true' not in res.stdout
+
+
+@pytest.fixture(scope="module")
+def r50_npz(tmp_path_factory):
+    """An R-50 npz of the port's seeded params at n_fg_class=2."""
+    cfg = mask_rcnn.MaskRCNNConfig(n_fg_class=2)
+    params = mask_rcnn.init_params(cfg, torch.Generator().manual_seed(3))
+    path = str(tmp_path_factory.mktemp("npz") / "r50_fg2.npz")
+    checkpoint.save_params(path, params)
+    return path, params
+
+
+@pytest.mark.parametrize("kw", [dict(n_fg_class=5),
+                                dict(n_fg_class=2, n_layers=101)],
+                         ids=["n_fg_class", "n_layers"])
+def test_pretrained_model_mismatch_raises(r50_npz, kw):
+    """The port's twin of tests/test_importers.py::
+    test_checkpoint_mismatch_raises, through the constructor: a mismatched
+    npz raises at construction, as the JAX constructor's conform_params
+    does, not later in predict."""
+    path, _ = r50_npz
+    with pytest.raises(ValueError, match="mismatch"):
+        MaskRCNNResNet(pretrained_model=path, device="cpu", **kw)
+
+
+def test_pretrained_model_loads_bit_for_bit(r50_npz):
+    path, params = r50_npz
+    model = MaskRCNNResNet(n_fg_class=2, pretrained_model=path, device="cpu")
+    got = checkpoint.flatten_params(model.params)
+    want = checkpoint.flatten_params(params)
+    assert set(got) == set(want)
+    for k, v in want.items():
+        assert got[k].device.type == "cpu" and got[k].dtype == v.dtype, k
+        assert torch.equal(got[k], v), k
+
+
+# Share of pixels at which the port's uint8 preparation differs from the
+# JAX package's cv2 uint8 resize: 10-13% on COCO-like sizes (cv2 rounds
+# its fixed-point bilinear, the port rounds its float32 resize), bounded
+# at 15%; never by more than one level.
+UINT8_DIFF_SHARE = 0.15
+
+
+def test_uint8_prepare_within_one_level_of_jax():
+    """The port's ``uint8_input`` seam: its float32 device resize rounded to
+    uint8 against the JAX package's uint8 path (cv2 ``INTER_LINEAR`` on
+    uint8, mask_rcnn_tpu/models/api.py:247-251) at the 800/1333 config."""
+    from mask_rcnn_tpu.models.mask_rcnn import MaskRCNNConfig as JaxConfig
+
+    jmodel = JaxMaskRCNNResNet.from_config(
+        JaxConfig(n_fg_class=3, min_size=800, max_size=1333), None,
+        uint8_input=True)
+    tmodel = MaskRCNNResNet.from_config(
+        mask_rcnn.MaskRCNNConfig(n_fg_class=3, min_size=800, max_size=1333),
+        None, device="cpu", uint8_input=True)
+    rng = np.random.RandomState(4)
+    imgs = [rng.uniform(0, 255, (3, h, w)).astype(np.float32)
+            for h, w in ((480, 640), (427, 640), (640, 480), (375, 500))]
+    got, gsizes, gscales = tmodel.prepare(imgs)
+    want, wsizes, wscales = jmodel.prepare(imgs)
+    assert gsizes == wsizes and np.allclose(gscales, wscales)
+    for g, w in zip(got, want):
+        assert g.dtype == torch.uint8 and w.dtype == np.uint8
+        assert tuple(g.shape) == w.shape
+        diff = np.abs(g.numpy().astype(np.int16) - w.astype(np.int16))
+        assert diff.max() <= 1
+        assert 0 < (diff > 0).mean() <= UINT8_DIFF_SHARE

@@ -153,6 +153,103 @@ def test_roi_align_backward_kernel_matches_plain(dev, dtype, bin_stride,
                                atol=1e-5 * want.abs().max().item())
 
 
+def edge_rois(rng, n, r, h, w):
+    """Per-image rois in image coordinates (feature stride 16), the edge
+    cases first: partly outside (top-left, bottom-right), wholly outside
+    (above-left, below-right: every sample skipped), zero-area (at the
+    origin and inside the map), larger than the map, the whole map; then
+    random boxes."""
+    fixed = [[-20, -20, 40, 40],
+             [h * 16 - 30, w * 16 - 30, h * 16 + 30, w * 16 + 30],
+             [-300, -300, -100, -50],
+             [h * 16 + 40, w * 16 + 40, h * 16 + 300, w * 16 + 200],
+             [0, 0, 0, 0], [50, 60, 50, 60],
+             [-64, -64, h * 16 + 64, w * 16 + 64], [0, 0, h * 16, w * 16]]
+    rois = np.stack([random_boxes(rng, r, h * 16, w * 16, min_size=2)
+                     for _ in range(n)])
+    rois[:, :len(fixed)] = fixed
+    return torch.from_numpy(rois)
+
+
+@pytest.mark.parametrize("c", [8, 70, 1024, 1032])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("bin_stride,sampling_ratio", [(1, 0), (2, 0),
+                                                       (1, 2), (2, 2)])
+def test_roi_align_backward_kernel_edge_cases(dev, dtype, bin_stride,
+                                              sampling_ratio, c):
+    """K7's 16-byte form (C = 8, 1024, 1032: one, 128 and 129 bf16 groups)
+    and scalar form with a tail (C = 70) on rois partly or wholly outside
+    the map, zero-area and larger than the map."""
+    rng = np.random.RandomState(c)
+    n, h, w, r = 2, 13, 21, 40
+    rois = edge_rois(rng, n, r, h, w).to(dev)
+    g = torch.from_numpy(rng.randn(n, r, 7, 7, c).astype(np.float32))
+    g = g.to(dev, dtype)
+    args = ((h, w), 1 / 16, sampling_ratio, bin_stride)
+    got = roi_align.roi_align_grouped_backward(g, rois, *args)
+    want = roi_align.roi_align_grouped_backward_plain(g.float(), rois, *args)
+    assert got.dtype == dtype and got.is_contiguous()
+    assert got.shape == (n, h, w, c)
+    # float32: the atomics' order; bf16: one rounding of the float32 sum
+    rtol = 2.0 ** -8 if dtype == torch.bfloat16 else 1e-5
+    torch.testing.assert_close(got.float(), want, rtol=rtol,
+                               atol=1e-5 * want.abs().max().item())
+    # the wholly outside rois scatter nothing
+    outside = torch.zeros_like(g)
+    outside[:, 2:4] = g[:, 2:4]
+    assert not roi_align.roi_align_grouped_backward(outside, rois,
+                                                    *args).any()
+
+
+@pytest.mark.parametrize("counts", [(1300, 700), (2000, 0)])
+def test_flat_roi_align_backward_kernel_splits(dev, counts):
+    """K13 at the flat head's split of 2000 rois over two images, and with
+    all of them on the first image, at 1024 bf16 channels."""
+    rng = np.random.RandomState(11)
+    n, h, w, c = 2, 26, 42, 1024
+    boxes = np.concatenate([random_boxes(rng, k, h * 16, w * 16, min_size=2)
+                            for k in counts])
+    idx = np.repeat(np.arange(n, dtype=np.int32), counts)
+    perm = rng.permutation(len(idx))
+    rois = torch.from_numpy(boxes[perm]).to(dev)
+    idx = torch.from_numpy(idx[perm]).to(dev)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    g = torch.randn((len(idx), 7, 7, c), generator=gen,
+                    device=dev).bfloat16()
+    args = ((n, h, w), 1 / 16, 0, 2)
+    got = roi_align.roi_align_backward(g, rois, idx, *args)
+    want = roi_align.roi_align_backward_plain(g.float(), rois, idx, *args)
+    assert got.dtype == torch.bfloat16 and got.is_contiguous()
+    torch.testing.assert_close(got.float(), want, rtol=2.0 ** -8,
+                               atol=1e-5 * want.abs().max().item())
+    if not counts[1]:
+        assert not got[1].any()
+
+
+def test_roi_align_backward_refuses_misaligned_grad(dev):
+    """K7 and K13 read 16-byte groups of grad_out: a contiguous view 4 bytes
+    into another tensor is refused by the wrappers; through autograd the
+    incoming gradient is first copied to a 16-byte boundary."""
+    c, shape = 8, (2, 5, 7, 7, 8)
+    numel = int(np.prod(shape))
+    buf = torch.randn(numel + 4, device=dev)
+    g = buf[1:1 + numel].view(shape)
+    assert g.is_contiguous() and g.data_ptr() % 16 == 4
+    rois = border_rois(np.random.RandomState(12), 2, 5, 4, 4).to(dev)
+    idx = torch.arange(10, dtype=torch.int32, device=dev) // 5
+    with pytest.raises(ValueError, match="16-byte"):
+        roi_align.roi_align_grouped_backward(g, rois, (4, 4), 1 / 16)
+    with pytest.raises(ValueError, match="16-byte"):
+        roi_align.roi_align_backward(g.view(10, 7, 7, c), rois.view(10, 4),
+                                     idx, (2, 4, 4), 1 / 16)
+    f = torch.randn(2, 4, 4, c, device=dev, requires_grad=True)
+    out = roi_align.roi_align_grouped(f, rois, 7, 1 / 16, 0, 2)
+    (got,) = torch.autograd.grad(out, f, g, retain_graph=True)
+    (want,) = torch.autograd.grad(out, f, g.clone())
+    torch.testing.assert_close(got, want, rtol=1e-5,
+                               atol=1e-5 * want.abs().max().item())
+
+
 def test_roi_align_autograd_runs_both_kernels(dev):
     rng = np.random.RandomState(2)
     n, h, w, c = 2, 9, 11, 64
@@ -456,6 +553,20 @@ def test_head_forward_runs_pool_kernels(dev, pooling, n):
 @pytest.mark.parametrize("shape", [(2, 64, 96), (1, 61, 91), (3, 17, 130),
                                    (1, 832, 1344)])
 def test_stem_kernel_matches_plain(dev, dtype, shape):
+    check_stem_kernel(dev, dtype, shape)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(1, 1, 1), (1, 5, 7), (2, 13, 27),
+                                   (3, 30, 45), (3, 38, 70), (1, 35, 33)])
+def test_stem_kernel_edge_shapes(dev, dtype, shape):
+    """H and W not multiples of 4 or 8, images smaller than one 8x8 pooled
+    tile (32x32 pixels), a batch of 3; the bf16 (tensor-core) and float32
+    (CUDA-core) forms."""
+    check_stem_kernel(dev, dtype, shape)
+
+
+def check_stem_kernel(dev, dtype, shape):
     from mask_rcnn_tpu_torch.models import resnet
     from mask_rcnn_tpu_torch.models.mask_rcnn import set_float32_precision
 

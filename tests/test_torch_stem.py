@@ -107,3 +107,33 @@ def test_train_extractor_runs_the_stem_without_autograd(monkeypatch):
         .backward()
     assert seen == [False, True]
     assert params["conv1"]["W"].grad is not None
+
+
+@pytest.mark.parametrize("shape", [(2, 32, 48), (1, 21, 27)])
+def test_packed_stem_weights_im2col_matches_conv(shape):
+    """The host-side layout of K10's bf16 form: the im2col product of the
+    input with ``pack_stem_weights`` (taps ky * 24 + kx * 3 + c, zero
+    padding) equals ``stem_forward_plain``'s conv with the bf16-rounded
+    weights, in float32 on the CPU."""
+    import torch.nn.functional as F
+
+    _, tparams = stem_params()
+    w = tparams["conv1"]["W"]
+    packed = resnet.pack_stem_weights(w)
+    assert packed.shape == (64, resnet.STEM_K)
+    assert packed.dtype == torch.bfloat16 and packed.is_contiguous()
+    k = packed.float().reshape(64, -1)
+    assert not k[:, 168:].any()
+    assert not k[:, :168].reshape(64, 7, 24)[:, :, 21:].any()
+    n, h, wd = shape
+    x = torch.from_numpy(
+        np.random.RandomState(3).randn(n, h, wd, 3).astype(np.float32) * 50)
+    cols = F.unfold(resnet.nchw(x), 7, padding=3, stride=2)  # (n, c*ky*kx, L)
+    cols = cols.reshape(n, 3, 7, 7, -1).permute(0, 4, 2, 3, 1)
+    cols = F.pad(cols.reshape(n, -1, 7, 21), (0, 3)).reshape(n, -1, 168)
+    got = F.pad(cols, (0, 8)) @ k.T  # (n, L, 64)
+    want = resnet.conv2d(x, w.to(torch.bfloat16).float(), stride=2,
+                         padding=3)
+    ch, cw = -(-h // 2), -(-wd // 2)
+    torch.testing.assert_close(got.reshape(n, ch, cw, 64), want, rtol=0,
+                               atol=1e-5 * want.abs().max().item())
