@@ -13,9 +13,12 @@ GPU.
    6000 -> 1000 at 0.7 and, at the train counts, (2, 12000) -> 2000;
    decode NMS K3 80 x 256 -> 100 at 0.5; RoIAlign
    backward K7 from (2, 512, 7, 7, 1024) bf16 to (2, 52, 84, 1024); the
-   mask-target crop-resize K8 of (2, 8, 832, 168) packed masks to
-   (2, 128, 14, 14); anchor matching K9 of 65520 anchors and proposal
-   matching of (2, 2008) candidates to 8 gts per image; the alternate
+   target creators, each one launch: K9a ``anchor_targets`` on 2 x 65520
+   anchors and 8 gts per image, and K9b ``proposal_targets`` (with the
+   mask-target crop-resize K8) on (2, 2008) candidates and (2, 8, 832, 168)
+   packed masks to 512 slots of (14, 14), under drawn and under tied
+   sampling priorities (labels, rois and masks identical, locs within
+   1e-6); the alternate
    poolers' crop-and-resize K5 and max RoI pooling K6 (identical) on the
    same features with 1000 and 100 flat rois to 14x14 bins, and their
    backwards K11 and K12 from (1024, 14, 14, 1024) bf16 to
@@ -37,7 +40,7 @@ GPU.
    masks: 3 warm-up and 10 (``align``) or 5 timed steps; checks that every
    loss is finite, that the frozen params did not change and every
    trainable one did, and that the stem K10, the pooler's kernels (K1/K7,
-   K5/K11 or K6/K12), K2, K8 and K9 were launched during that run; the
+   K5/K11 or K6/K12), K2, K9a and K9b were launched during that run; the
    align run then times the step with the four-op stem swapped in, and K2
    against its plain version on the boxes that the step's RPN hands it
    (identical, with where the scan stopped); then profiles two more steps
@@ -51,7 +54,7 @@ GPU.
    COCO evaluation on 4 more, a checkpoint, evaluation and a log entry
    every 4 steps; run A stops at step 4, run B resumes from its checkpoint
    (restored bit for bit) to step 8; checks the artifacts, finite losses
-   and that K10, K1, K2, K3, K7, K8 and K9 were launched.
+   and that K10, K1, K2, K3, K7, K9a and K9b were launched.
 
 Prints the card's name and power limit, each path's times, one JSON line
 of kernel results (``launches`` over every main-path run above,
@@ -62,8 +65,9 @@ Exits non-zero, and prints no result, when a phase fails or no CUDA device
 is present.
 
 With ``--against OTHER_CHECKOUT`` it runs none of the above: it times K1,
-K2, K4, K7, K13 and K10 of this checkout against another checkout's on the
-same inputs (see :func:`run_against`).
+K2, K4, K7, K13, K10, the two target creators and the align train step of
+this checkout against another checkout's on the same inputs (see
+:func:`run_against`).
 """
 
 import argparse
@@ -104,10 +108,10 @@ def cuda_ms(torch, fn, warmup=3, iters=20):
     return start.elapsed_time(end) / iters
 
 
-def device_ms(torch, fn, iters=10):
-    """Device time per call: the summed time of the CUDA kernels that
-    ``iters`` calls of ``fn`` launch, from the profiler, over ``iters``.
-    Unlike :func:`cuda_ms` it leaves out the gaps in which the device waits
+def device_profile(torch, fn, iters=10):
+    """Device time and device activities (kernels, memsets, copies) per
+    call of ``fn``, from the profiler over ``iters`` calls. Unlike
+    :func:`cuda_ms` the time leaves out the gaps in which the device waits
     for the host, so it reads a kernel whose wrapper's host work takes
     longer than the kernel."""
     from torch.profiler import ProfilerActivity, profile
@@ -118,9 +122,15 @@ def device_ms(torch, fn, iters=10):
         for _ in range(iters):
             fn()
         torch.cuda.synchronize()
-    return sum(ev.self_device_time_total for ev in prof.key_averages()
-               if ev.device_type == torch.autograd.DeviceType.CUDA) \
-        / 1e3 / iters
+    events = [ev for ev in prof.key_averages()
+              if ev.device_type == torch.autograd.DeviceType.CUDA]
+    return (sum(ev.self_device_time_total for ev in events) / 1e3 / iters,
+            sum(ev.count for ev in events) / iters)
+
+
+def device_ms(torch, fn, iters=10):
+    """Device time per call (:func:`device_profile`)."""
+    return device_profile(torch, fn, iters)[0]
 
 
 # The least time the card could take: bytes at
@@ -464,9 +474,62 @@ def train_batch(torch, n, h, w, device, **kw):
     return {k: torch.from_numpy(v).to(device) for k, v in batch.items()}
 
 
+def anchor_target_bytes(a_in, got, cfg):
+    """The bytes K9a's function must move on this run's data: the anchors,
+    gt boxes and validity, one priority per sampling candidate (``pri_pos``
+    of a pre-sampling positive, ``pri_neg`` of a negative), then loc and
+    label. Returns (bytes, what was counted)."""
+    from mask_rcnn_tpu_torch.ops import targets
+
+    bbox, valid, anchors, img_size = a_in
+    _, label = targets.anchor_match_plain(
+        anchors, bbox, valid, img_size, cfg.pos_iou_thresh,
+        cfg.neg_iou_thresh)
+    cand = (label >= 0).sum().item()
+    return nbytes(bbox, valid, anchors, *got) + 4 * cand, {
+        "candidate priorities": cand}
+
+
+def proposal_target_bytes(torch, p_in, got, cfg):
+    """The bytes K9b + K8's function must move on this run's data: the rois,
+    gt boxes, labels and validity, one priority per sampling candidate, the
+    outputs, and of the packed (N, G, H, W/8) masks only the distinct bytes
+    that the positive crops' bilinear taps read. Returns (bytes, what was
+    counted)."""
+    from mask_rcnn_tpu_torch.ops import targets
+
+    roi, roi_valid, bbox, _, valid, masks = p_in
+    thresh = (cfg.pos_iou_thresh, cfg.neg_iou_thresh_hi,
+              cfg.neg_iou_thresh_lo)
+    _, pos, neg = targets.proposal_match_plain(
+        torch.cat([roi, bbox], 1), torch.cat([roi_valid, valid], 1), bbox,
+        valid, *thresh)
+    cand = (pos | neg).sum().item()
+    sample_roi, _, gt_label = got[:3]
+    n_crop = min(int(round(cfg.n_sample * cfg.pos_ratio)), cfg.n_sample)
+    crop_roi = sample_roi[:, :n_crop]
+    positive = gt_label[:, :n_crop] > 0
+    # a sampled box's gt is its own argmax, as it was the candidate's
+    gt_of, _, _ = targets.proposal_match_plain(
+        crop_roi, torch.ones_like(positive), bbox, valid, *thresh)
+    n, g, hm, wm = masks.shape
+    y0, y1, x0, x1, _, _ = targets.mask_sample_coords(
+        crop_roi, (hm, wm * 8), cfg.mask_size)
+    image = torch.arange(n, device=roi.device)[:, None]
+    row = ((image * g + gt_of) * hm)[..., None]
+    taps = [((row + y)[..., :, None] * wm + (x // 8)[..., None, :])[positive]
+            for y in (y0, y1) for x in (x0, x1)]
+    mask_bytes = torch.unique(torch.cat(taps)).numel()
+    n_bytes = (nbytes(roi, roi_valid, *p_in[2:5], *got) + 4 * cand
+               + mask_bytes)
+    return n_bytes, {"candidate priorities": cand,
+                     "crops": positive.sum().item(),
+                     "distinct mask bytes": mask_bytes}
+
+
 def check_train_kernels(torch, results):
-    """Phase 2, training side: K7, K8, K9 against their plain versions at
-    the train step's shapes."""
+    """Phase 2, training side: K7, K2 at the train counts, K9a and K9b + K8
+    against their plain versions at the train step's shapes."""
     from mask_rcnn_tpu_torch.models.mask_rcnn import (
         MaskRCNNConfig,
         make_anchors,
@@ -545,83 +608,98 @@ def check_train_kernels(torch, results):
     k2["max_abs_err"] += float(n_diff)
     k2["train_ms"], k2["train_plain_ms"] = ms, plain_ms
 
-    # K8: 128 positive slots per image, rois jittered around their gts.
-    q = 128
-    gt_index = torch.from_numpy(rng.randint(0, 8, (n, q))).to(dev)
-    bbox = batch["bbox"].gather(1, gt_index[..., None].expand(n, q, 4))
-    jitter = torch.from_numpy(rng.randn(n, q, 4).astype(np.float32) * 8)
-    hi = torch.tensor([h, w, h, w], dtype=torch.float32, device=dev)
-    crop_rois = torch.minimum((bbox + jitter.to(dev)).clamp(min=0), hi)
-    fn = lambda: targets.mask_crop_resize(batch["mask"], gt_index,  # noqa
-                                          crop_rois, 14, True)
-    plain = lambda: targets.mask_crop_resize_plain(  # noqa
-        batch["mask"], gt_index, crop_rois, 14, True)
-    got, want = fn(), plain()
-    torch.cuda.synchronize()
-    n_diff = (got != want).sum().item()
-    ms, plain_ms = cuda_ms(torch, fn), cuda_ms(torch, plain)
-    print(f"K8 mask crop-resize {tuple(batch['mask'].shape)} packed -> "
-          f"{tuple(got.shape)}: identical={n_diff == 0} (ones "
-          f"{int(got.sum())}), kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
-    if n_diff:
-        raise AssertionError(f"K8 differs from its plain version at {n_diff} "
-                             "cells")
-    results["mask_crop_resize"] = {
-        "name": "mask_crop_resize", "route": "cuda",
-        "source": "mask_rcnn_tpu_torch/csrc/targets.cu",
-        "replaces": "mask_rcnn_tpu/models/targets.py:190",
-        "max_abs_err": float(n_diff), "ms": ms, "plain_ms": plain_ms,
-        # a bilinear sample of the mask per cell: 8 ops
-        **bound(nbytes(batch["mask"], gt_index, crop_rois, got),
-                8 * got.numel())}
-
-    # K9: 65520 anchors of the 52x84 grid, and 2000 proposals + 8 gts.
+    # K9a (anchor_targets) on the 65520 anchors of the 52x84 grid and K9b +
+    # K8 (proposal_targets) on 2000 proposals + 8 gts per image with the
+    # packed masks, under priorities drawn as the train step draws them
+    # (torch.rand on the card) and under the same rounded down to 4 values
+    # (equal keys straddle every quota's cut).
     cfg = MaskRCNNConfig(n_fg_class=N_CLASS_FG,
                          anchor_scales=(2, 4, 8, 16, 32))
     anchors = torch.from_numpy(make_anchors(cfg, h // 16, w // 16)).to(dev)
-    cand = torch.cat([torch.from_numpy(np.stack(
-        [proposal_like_boxes(rng, 2000, h, w) for _ in range(n)])).to(dev),
-        batch["bbox"]], dim=1)
-    cvalid = torch.from_numpy(rng.rand(n, 2008) > 0.02).to(dev)
-    k9 = {"name": "anchor_match+proposal_match", "route": "cuda",
-          "source": "mask_rcnn_tpu_torch/csrc/targets.cu",
-          "replaces": "mask_rcnn_tpu/models/targets.py:54",
-          "max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0}
-    k9_bytes = k9_flops = 0
-    for name, fn, plain, ins, pairs in (
-        ("anchor_match",
-         lambda: targets.anchor_match(anchors, batch["bbox"],
-                                      batch["bbox_valid"], (h, w), 0.7, 0.3),
-         lambda: targets.anchor_match_plain(anchors, batch["bbox"],
-                                            batch["bbox_valid"], (h, w),
-                                            0.7, 0.3),
-         (anchors, batch["bbox"], batch["bbox_valid"]),
-         n * anchors.shape[0] * 8),
-        ("proposal_match",
-         lambda: targets.proposal_match(cand, cvalid, batch["bbox"],
-                                        batch["bbox_valid"], 0.5, 0.5, 0.0),
-         lambda: targets.proposal_match_plain(cand, cvalid, batch["bbox"],
-                                              batch["bbox_valid"], 0.5, 0.5,
-                                              0.0),
-         (cand, cvalid, batch["bbox"], batch["bbox_valid"]),
-         n * cand.shape[1] * 8),
-    ):
-        got, want = fn(), plain()
-        torch.cuda.synchronize()
-        n_diff = sum((a != b).sum().item() for a, b in zip(got, want))
-        ms, plain_ms = cuda_ms(torch, fn), cuda_ms(torch, plain)
-        print(f"K9 {name} {tuple(got[0].shape)} x 8 gts: identical="
-              f"{n_diff == 0}, kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
-        if n_diff:
-            raise AssertionError(f"K9 {name} differs from its plain version "
-                                 f"at {n_diff} values")
-        k9["max_abs_err"] += float(n_diff)
-        k9["ms"] += ms
-        k9["plain_ms"] += plain_ms
-        k9_bytes += nbytes(*ins, *got)
-        k9_flops += 12 * pairs  # an IoU per (box, gt) pair
-    k9.update(bound(k9_bytes, k9_flops))
-    results["anchor_match"] = k9
+    boxes = np.stack([proposal_like_boxes(rng, 2000, h, w) for _ in range(n)])
+    # 200 proposals jittered around the gts: more positives than the quota
+    gt_np = batch["bbox"].cpu().numpy()
+    near = gt_np[:, rng.randint(0, 8, 200)] + rng.randn(n, 200, 4) * 8
+    boxes[:, :200] = np.clip(near, 0, [h, w, h, w])
+    rois = torch.from_numpy(boxes.astype(np.float32)).to(dev)
+    roi_valid = torch.from_numpy(rng.rand(n, 2000) > 0.02).to(dev)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    s, p = anchors.shape[0], rois.shape[1] + batch["bbox"].shape[1]
+    drawn = [torch.rand(shape, generator=gen, device=dev)
+             for shape in ((n, s), (n, s), (n, p), (n, p))]
+    acfg, pcfg = targets.AnchorTargetConfig(), targets.ProposalTargetConfig()
+    norm = ((0.0, 0.0, 0.0, 0.0), (0.1, 0.1, 0.2, 0.2))
+    a_in = (batch["bbox"], batch["bbox_valid"], anchors, (h, w))
+    p_in = (rois, roi_valid, batch["bbox"], batch["label"],
+            batch["bbox_valid"], batch["mask"])
+    lines = {
+        "anchor_targets": dict(
+            fn=lambda pri: targets.anchor_targets(*a_in, *pri[:2], acfg),
+            plain=lambda pri: targets.anchor_targets_plain(*a_in, *pri[:2],
+                                                           acfg),
+            exact=(1,), replaces="mask_rcnn_tpu/models/targets.py:54",
+            what=f"K9a anchor_targets ({n}, {s}) anchors x 8 gts"),
+        "proposal_targets": dict(
+            fn=lambda pri: targets.proposal_targets(
+                *p_in, *pri[2:], pcfg, *norm, True),
+            plain=lambda pri: targets.proposal_targets_plain(
+                *p_in, *pri[2:], pcfg, *norm, True),
+            exact=(0, 2, 3), replaces="mask_rcnn_tpu/models/targets.py:241",
+            what=f"K9b + K8 proposal_targets ({n}, {p}) candidates, "
+                 f"packed masks {tuple(batch['mask'].shape)}"),
+    }
+    for name, k in lines.items():
+        entry = {"name": name, "route": "cuda",
+                 "source": "mask_rcnn_tpu_torch/csrc/targets.cu",
+                 "replaces": k["replaces"], "max_abs_err": 0.0}
+        for kind, pri in (("train priorities", drawn),
+                          ("tied priorities",
+                           [torch.floor(q * 4) / 4 for q in drawn])):
+            got, want = k["fn"](pri), k["plain"](pri)
+            torch.cuda.synchronize()
+            n_diff = sum((got[i] != want[i]).sum().item() for i in k["exact"])
+            loc = 0 if name == "anchor_targets" else 1
+            err = (got[loc] - want[loc]).abs()
+            bad = (err > 1e-6 + 1e-6 * want[loc].abs()).sum().item()
+            entry["max_abs_err"] = max(entry["max_abs_err"], err.max().item())
+            note = f"{k['what']}, {kind}: identical={n_diff == 0}"
+            if name == "anchor_targets":
+                note += (f" (positives {(got[1] == 1).sum(1).tolist()}, "
+                         f"negatives {(got[1] == 0).sum(1).tolist()})")
+            else:
+                note += (f" (positive slots {(got[2] > 0).sum(1).tolist()},"
+                         f" unfilled {(got[2] < 0).sum(1).tolist()})")
+            note += (f", loc max|diff| {err.max().item():.3e} (rtol 1e-6, "
+                     f"atol 1e-6, {bad} outside)")
+            if kind == "train priorities":
+                # ms: the kernel's device time (the wrapper's host work
+                # outlasts it back to back, as K10's does)
+                wrapper_ms = cuda_ms(torch, lambda: k["fn"](pri))
+                ms = device_ms(torch, lambda: k["fn"](pri))
+                plain_ms = cuda_ms(torch, lambda: k["plain"](pri), warmup=1,
+                                   iters=5)
+                entry.update(ms=ms, wrapper_ms=wrapper_ms, plain_ms=plain_ms)
+                note += (f", kernel {ms:.4f} ms on the device (wrapper calls "
+                         f"back to back {wrapper_ms:.4f} ms), plain "
+                         f"{plain_ms:.4f} ms")
+                n_gt = batch["bbox_valid"].sum().item()
+                if name == "anchor_targets":  # an IoU per (anchor, gt) pair
+                    n_bytes, read = anchor_target_bytes(a_in, got, acfg)
+                    entry.update(bound(n_bytes, 12 * s * n_gt))
+                else:  # IoUs, and a bilinear sample per positive mask cell
+                    n_bytes, read = proposal_target_bytes(torch, p_in, got,
+                                                          pcfg)
+                    entry.update(bound(n_bytes, 12 * p * n_gt
+                                       + 8 * read["crops"] * 14 * 14))
+                note += (f"; bound over {n_bytes} bytes ("
+                         + ", ".join(f"{v} {k}" for k, v in read.items())
+                         + ")")
+            print(note)
+            if n_diff or bad:
+                raise AssertionError(f"{name} differs from its plain "
+                                     f"version ({kind}): {n_diff} values, "
+                                     f"{bad} locs outside the tolerance")
+        results[name] = entry
 
 
 def stem_params(torch, gen):
@@ -1473,7 +1551,7 @@ def kernel_group(name):
         ("K6 roi_pool fwd", ("roi_pool_fwd",)),
         ("K12 roi_pool bwd", ("roi_pool_bwd",)),
         ("K2 nms", ("nms_tiled",)),
-        ("K8/K9 targets", ("anchor_", "proposal_match", "mask_crop")),
+        ("K9a/K9b target creators", ("anchor_targets", "proposal_targets")),
         ("conv/matmul (cuDNN, cuBLAS)", ("conv", "gemm", "xmma", "cutlass",
                                          "sm90", "wgrad", "dgrad", "nchw",
                                          "nhwc", "nvjet")),
@@ -1536,7 +1614,8 @@ def check_outputs(imgs, bboxes, masks, labels, scores):
 
 AB_CASES = ("k1_bf16_1000", "k1_bf16_100", "k1_f32_1000", "k4_bf16_2000",
             "k2_6000_1000", "k2_2x12000_2000", "k7_bf16_2x512",
-            "k13_bf16_1300_700", "k10_bf16_b1", "k10_bf16_b2", "k10_f32_b1")
+            "k13_bf16_1300_700", "k10_bf16_b1", "k10_bf16_b2", "k10_f32_b1",
+            "targets_b2", "align_step_b2")
 # Cases whose kernels sum with float32 atomics: the two checkouts' outputs
 # differ in their last bits from run to run, so the A/B prints the largest
 # difference instead of bit-identity.
@@ -1551,7 +1630,11 @@ def ab_inputs(torch, path):
     (2, 12000) score-sorted boxes with invalid rows (K2), 2 x 512 rois and
     a (2, 512, 7, 7, 1024) gradient (K7; the gradients are drawn on the
     card from a seeded generator by :func:`ab_worker`), the stem's params
-    and (2, 832, 1344, 3) images (K10)."""
+    and (2, 832, 1344, 3) images (K10); a synthetic train batch of 2 at
+    832x1344 with 8 gts and packed masks an image, the 65520 anchors of its
+    52x84 grid, 2000 proposal-like boxes an image (200 of them jittered
+    around the gts) and the creators' sampling priorities (the target
+    creators; the batch also feeds the align train step)."""
     rng = np.random.RandomState(SEED)
     fh, fw = TRAIN_HW[0] // 16, TRAIN_HW[1] // 16
     t = torch.from_numpy
@@ -1576,14 +1659,87 @@ def ab_inputs(torch, path):
     gen = torch.Generator().manual_seed(SEED)
     x["stem"] = stem_params(torch, gen)
     x["images"] = torch.rand((2, *TRAIN_HW, 3), generator=gen) * 255 - 120
+    from mask_rcnn_tpu_torch.data.synthetic import make_synthetic_train_batch
+    from mask_rcnn_tpu_torch.models.mask_rcnn import (
+        MaskRCNNConfig,
+        make_anchors,
+    )
+
+    batch = make_synthetic_train_batch(2, *TRAIN_HW, rng)
+    x.update({f"batch_{k}": t(v) for k, v in batch.items()})
+    cfg = MaskRCNNConfig(n_fg_class=N_CLASS_FG,
+                         anchor_scales=(2, 4, 8, 16, 32))
+    x["anchors"] = t(make_anchors(cfg, fh, fw))
+    boxes = np.stack([proposal_like_boxes(rng, 2000, *TRAIN_HW)
+                      for _ in range(2)])
+    near = batch["bbox"][:, rng.randint(0, 8, 200)] + rng.randn(2, 200, 4) * 8
+    boxes[:, :200] = np.clip(near, 0, [*TRAIN_HW, *TRAIN_HW])
+    x["t_rois"] = t(boxes.astype(np.float32))
+    x["t_roi_valid"] = t(rng.rand(2, 2000) > 0.02)
+    s, p = len(x["anchors"]), 2000 + 8
+    for k, shape in (("a_pos", (2, s)), ("a_neg", (2, s)), ("p_pos", (2, p)),
+                     ("p_neg", (2, p))):
+        x[f"pri_{k}"] = torch.rand(shape, generator=gen)
     torch.save(x, path)
+
+
+def ab_targets(x):
+    """Both target creators of the worker's checkout
+    (``models/targets.py``) on the A/B inputs, with given priorities."""
+    from mask_rcnn_tpu_torch.models import targets as mt
+
+    a = mt.anchor_targets(x["batch_bbox"], x["batch_bbox_valid"],
+                          x["anchors"], TRAIN_HW, mt.AnchorTargetConfig(),
+                          priorities=(x["pri_a_pos"], x["pri_a_neg"]))
+    p = mt.proposal_targets(x["t_rois"], x["t_roi_valid"], x["batch_bbox"],
+                            x["batch_label"], x["batch_bbox_valid"],
+                            x["batch_mask"], mt.ProposalTargetConfig(),
+                            (0.0, 0.0, 0.0, 0.0), (0.1, 0.1, 0.2, 0.2),
+                            mask_packed=True,
+                            priorities=(x["pri_p_pos"], x["pri_p_neg"]))
+    return (*a, *p)
+
+
+def ab_step(torch, x):
+    """The worker's checkout's align train step at b2 832x1344 bf16
+    (R-50-C4 COCO, seeded random weights) on the A/B batch, the sampling
+    drawn from the step's seeded generator. Returns a function that runs
+    one more step, and the first step's losses."""
+    from mask_rcnn_tpu_torch import (
+        create_train_state,
+        make_optimizer,
+        make_train_step,
+    )
+    from mask_rcnn_tpu_torch.models.mask_rcnn import (
+        MaskRCNNConfig,
+        init_params,
+    )
+
+    cfg = MaskRCNNConfig(n_fg_class=N_CLASS_FG, min_size=800, max_size=1333,
+                         anchor_scales=(2, 4, 8, 16, 32),
+                         compute_dtype="bfloat16")
+    params = init_params(cfg, torch.Generator().manual_seed(SEED),
+                         torch.device("cuda"))
+    opt, _ = make_optimizer(params, 0.02, 1000)
+    state = [create_train_state(params, opt)]
+    step = make_train_step(cfg, opt)
+    batch = {k[len("batch_"):]: v for k, v in x.items()
+             if k.startswith("batch_")}
+
+    def run():
+        state[0], metrics = step(state[0], batch, SEED)
+        return metrics
+
+    first = run()
+    return run, (torch.stack(list(first.values())).cpu(),)
 
 
 def ab_worker(tree, inputs, out):
     """One side of the A/B: with ``tree``'s package, build its kernels, run
     each case once for its output and time it (CUDA events, 3 warm-up and
-    20 timed calls; and the device's kernel time from the profiler, over
-    10 calls); save outputs and times."""
+    20 timed calls; and the device's time and activities from the
+    profiler, over 10 calls; the align train step after its first step: 2
+    warm-up and 5 timed steps, 2 profiled); save outputs and times."""
     sys.path.insert(0, os.path.abspath(tree))
     import torch
 
@@ -1595,6 +1751,8 @@ def ab_worker(tree, inputs, out):
     _kernels.lib()
     x = torch.load(inputs)
     params = x.pop("stem")
+    step_run, step_first = ab_step(torch, {k: v.cuda() for k, v in x.items()
+                                           if k.startswith("batch_")})
     stem = {dt: {k: {m: t.cuda().to(dt) for m, t in v.items()}
                  for k, v in params.items()}
             for dt in (torch.bfloat16, torch.float32)}
@@ -1631,26 +1789,36 @@ def ab_worker(tree, inputs, out):
             stem[torch.bfloat16], img[torch.bfloat16]),
         "k10_f32_b1": lambda: resnet.stem_forward(
             stem[torch.float32], img[torch.float32][:1]),
+        "targets_b2": lambda: ab_targets(x),
     }
-    outputs, ms, dev_ms = {}, {}, {}
+    outputs, ms, dev_ms, launches = {}, {}, {}, {}
     with torch.no_grad():
-        for name in AB_CASES:
+        for name in AB_CASES[:-1]:
             got = calls[name]()
             got = got if isinstance(got, tuple) else (got,)
             outputs[name] = tuple(g.cpu() for g in got)
             ms[name] = cuda_ms(torch, calls[name])
-            dev_ms[name] = device_ms(torch, calls[name])
-    torch.save({"outputs": outputs, "ms": ms, "device_ms": dev_ms}, out)
+            dev_ms[name], launches[name] = device_profile(torch, calls[name])
+    name = AB_CASES[-1]
+    outputs[name] = step_first
+    ms[name] = cuda_ms(torch, step_run, warmup=2, iters=5)
+    dev_ms[name], launches[name] = device_profile(torch, step_run, iters=2)
+    torch.save({"outputs": outputs, "ms": ms, "device_ms": dev_ms,
+                "launches": launches}, out)
 
 
 def run_against(torch, other) -> int:
-    """K1, K2, K4, K7, K13 and K10 of this checkout against ``other``'s:
-    the same inputs (:func:`ab_inputs`) through each checkout's package in
-    its own process, in the order other, this, this, other. Prints each
-    run's times, whether this checkout's outputs equal the other's bit for
-    bit (where not, how many values of the first output differ and by how
-    much; for the atomic kernels K7 and K13 the largest difference, against
-    the largest value), and one JSON line."""
+    """K1, K2, K4, K7, K13, K10, the two target creators (``targets_b2``:
+    ``models/targets.py::anchor_targets`` + ``proposal_targets``) and the
+    align train step (``align_step_b2``; its output is the first step's
+    losses) of this checkout against ``other``'s: the same inputs
+    (:func:`ab_inputs`) through each checkout's package in its own
+    process, in the order other, this, this, other. Prints each run's
+    times (CUDA events and the profiler's device time) and device
+    activities per call, whether this checkout's outputs equal the other's
+    bit for bit (where not, how many values of the first output differ and
+    by how much; for the atomic kernels K7 and K13 the largest difference,
+    against the largest value), and one JSON line."""
     import tempfile
 
     here = os.path.dirname(os.path.abspath(__file__))
@@ -1669,9 +1837,11 @@ def run_against(torch, other) -> int:
             res = torch.load(out)
             outputs.setdefault(side, res["outputs"])
             runs.append({"tree": side, "ms": res["ms"],
-                         "device_ms": res["device_ms"]})
+                         "device_ms": res["device_ms"],
+                         "launches": res["launches"]})
             print(f"run {i} ({side}, {trees[side]}): " + ", ".join(
-                f"{k} {v:.4f} ms (device {res['device_ms'][k]:.4f})"
+                f"{k} {v:.4f} ms (device {res['device_ms'][k]:.4f}, "
+                f"{res['launches'][k]:g} launches)"
                 for k, v in res["ms"].items()))
     identical, differ = {}, {}
     for name in AB_CASES:
@@ -1699,7 +1869,8 @@ def run_against(torch, other) -> int:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--against", metavar="OTHER_CHECKOUT",
-                    help="time K1, K2, K4, K7, K13 and K10 against another "
+                    help="time K1, K2, K4, K7, K13, K10, the target "
+                    "creators and the align train step against another "
                     "checkout's instead of the smoke")
     ap.add_argument("--ab-worker", nargs=3, help=argparse.SUPPRESS)
     a = ap.parse_args(argv)
@@ -1770,8 +1941,8 @@ def main(argv=None) -> int:
     for pooling in POOLERS:
         counts, ms, host_ms, peak_gb, extra = drive_train_path(
             torch, (resnet.stem_forward, pool_fwd[pooling], nms.nms_blocked,
-                    pool_bwd[pooling], targets.mask_crop_resize,
-                    targets.anchor_match, targets.proposal_match),
+                    pool_bwd[pooling], targets.anchor_targets,
+                    targets.proposal_targets),
             pooling, reps=10 if pooling == "align" else 5)
         count(counts, pooling == "align")
         training[pooling] = {"train_ms_per_step_b2": ms,
@@ -1790,12 +1961,9 @@ def main(argv=None) -> int:
         torch, (resnet.stem_forward, roi_align.roi_align_grouped,
                 nms.nms_blocked, nms.nms_small,
                 roi_align.roi_align_grouped_backward,
-                targets.mask_crop_resize, targets.anchor_match,
-                targets.proposal_match))
+                targets.anchor_targets, targets.proposal_targets))
     count(counts, True)
     loop["launches"] = counts
-    for tally in (launches, launches_main):
-        tally["anchor_match"] += tally.pop("proposal_match")
     for name, entry in results.items():
         entry["launches"] = launches[name]
         entry["launches_main"] = launches_main.get(name, 0)
@@ -1804,8 +1972,9 @@ def main(argv=None) -> int:
                       "flat_head_ms_fwd_bwd": flat_ms, "train_loop": loop,
                       "card": smi}))
     order = ("roi_align_grouped", "nms_blocked", "nms_small",
-             "roi_align_grouped_backward", "mask_crop_resize", "anchor_match",
-             "crop_and_resize", "crop_and_resize_backward", "roi_pool",
+             "roi_align_grouped_backward", "anchor_targets",
+             "proposal_targets", "crop_and_resize",
+             "crop_and_resize_backward", "roi_pool",
              "roi_pool_backward", "stem_forward", "roi_align",
              "roi_align_backward")
     print(json.dumps({"kernels": [results[k] for k in order]}))

@@ -23,7 +23,7 @@ from mask_rcnn_tpu_torch.ops import anchors as anchor_ops
 from mask_rcnn_tpu_torch.ops.boxes import loc2bbox
 from mask_rcnn_tpu_torch.ops.nms import nms_padded
 from mask_rcnn_tpu_torch.ops.roi_align import POOLING_FUNCS
-from mask_rcnn_tpu_torch.models.rpn import top_k_stable
+from mask_rcnn_tpu_torch.ops.tensors import constant, top_k_stable
 
 
 @dataclasses.dataclass(frozen=True)
@@ -109,14 +109,6 @@ def make_anchors(cfg: MaskRCNNConfig, feat_h: int, feat_w: int) -> np.ndarray:
     )
 
 
-@functools.lru_cache(maxsize=32)
-def _constant(values: tuple, device: torch.device) -> torch.Tensor:
-    """A small float32 tensor on ``device``, uploaded once: an upload on
-    every step would make the host wait for the device mid-step. Callers
-    must not modify it."""
-    return torch.tensor(values, dtype=torch.float32, device=device)
-
-
 @functools.lru_cache(maxsize=16)
 def _anchors(cfg: MaskRCNNConfig, feat_h: int, feat_w: int,
              device: torch.device) -> torch.Tensor:
@@ -175,8 +167,8 @@ def decode(cfg, roi, roi_valid, cls_loc, score, sizes, scales):
     dev = roi.device
 
     prob = torch.softmax(score.float(), dim=-1)  # (N, Rp, n_class)
-    mean = _constant(tuple(cfg.loc_normalize_mean) * n_class, dev)
-    std = _constant(tuple(cfg.loc_normalize_std) * n_class, dev)
+    mean = constant(tuple(cfg.loc_normalize_mean) * n_class, dev)
+    std = constant(tuple(cfg.loc_normalize_std) * n_class, dev)
     cls_loc = (cls_loc.float() * std + mean).reshape(n, rp, n_class, 4)
     roi_img = roi / scales[:, None, None]
     cls_bbox = loc2bbox(roi_img[:, :, None, :].expand_as(cls_loc), cls_loc)
@@ -244,7 +236,7 @@ def predict_step(params, cfg: MaskRCNNConfig, images, sizes,
     n = images.shape[0]
     d = cfg.detections_per_im
     if images.dtype == torch.uint8:
-        images = images.float() - _constant(tuple(cfg.mean), images.device)
+        images = images.float() - constant(tuple(cfg.mean), images.device)
     params = cast_params(params, cfg.compute_dtype)
     feats, locs, scores, anchors = forward_backbone_rpn(params, cfg, images)
     rois, rois_valid = rpn.propose_batch(

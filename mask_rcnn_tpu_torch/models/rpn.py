@@ -17,6 +17,7 @@ import torch
 from mask_rcnn_tpu_torch.models.resnet import conv2d
 from mask_rcnn_tpu_torch.ops.boxes import clip_boxes, loc2bbox
 from mask_rcnn_tpu_torch.ops.nms import nms_padded
+from mask_rcnn_tpu_torch.ops.tensors import top_k_stable
 
 
 @dataclasses.dataclass(frozen=True)
@@ -61,14 +62,6 @@ def init_rpn(gen, in_channels=1024, mid_channels=1024, n_anchor=12,
         "loc": conv(1, 1, mid_channels, n_anchor * 4),
         "score": conv(1, 1, mid_channels, n_anchor),
     }
-
-
-def top_k_stable(x, k, dim=-1):
-    """``lax.top_k``: the k largest along ``dim``, ties toward the lower
-    index (a stable descending sort; ``torch.topk`` promises no tie order,
-    and bf16 RPN scores tie often)."""
-    values, indices = torch.sort(x, dim=dim, descending=True, stable=True)
-    return values.narrow(dim, 0, k), indices.narrow(dim, 0, k)
 
 
 def propose_batch(locs, scores, anchors, img_size, scales,

@@ -19,7 +19,6 @@ import torch
 from mask_rcnn_tpu_torch.models import heads, rpn
 from mask_rcnn_tpu_torch.models.mask_rcnn import (
     MaskRCNNConfig,
-    _constant,
     cast_params,
     forward_backbone_rpn,
     set_float32_precision,
@@ -35,6 +34,7 @@ from mask_rcnn_tpu_torch.ops.losses import (
     sigmoid_cross_entropy,
     softmax_cross_entropy,
 )
+from mask_rcnn_tpu_torch.ops.tensors import constant
 
 
 def train_loss(
@@ -69,7 +69,7 @@ def train_loss(
     set_float32_precision()
     images = batch["image"]
     if images.dtype == torch.uint8:
-        images = images.float() - _constant(tuple(cfg.mean), images.device)
+        images = images.float() - constant(tuple(cfg.mean), images.device)
     n = images.shape[0]
     img_size = tuple(images.shape[1:3])
     if isinstance(generator_or_priorities, torch.Generator):

@@ -42,12 +42,17 @@ _SIGNATURES = {
                                  _F, _I, _I, _P),
     # (x, w, scale, bias, out, dtype, N, H, W, stream)
     "mrcnn_stem_fwd": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
-    "mrcnn_anchor_match": (_P, _P, _P, _P, _I, _I, _I, _F, _F, _F, _F, _P, _P,
-                           _P),
-    "mrcnn_proposal_match": (_P, _P, _P, _P, _I, _I, _I, _F, _F, _F, _P, _P,
-                             _P, _P),
-    "mrcnn_mask_crop_resize": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P,
-                               _P),
+    # (anchors, gt, gt_valid, pri_pos, pri_neg, N, S, G, h, w, pos_thresh,
+    #  neg_thresh, pos_quota, n_sample, loc, label, stream)
+    "mrcnn_anchor_targets": (_P, _P, _P, _P, _P, _I, _I, _I, _F, _F, _F, _F,
+                             _I, _I, _P, _P, _P),
+    # (roi, roi_valid, gt, gt_valid, gt_class, masks, pri_pos, pri_neg,
+    #  norm, N, P0, G, H, Wm, packed, pos_thresh, neg_hi, neg_lo, n_sample,
+    #  pos_quota, M, sample_roi, gt_loc, gt_label, gt_mask, stream)
+    "mrcnn_proposal_targets": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                               _I, _I, _I, _F, _F, _F, _I, _I, _I, _P, _P,
+                               _P, _P, _P),
+    "mrcnn_targets_limits": (_P,),  # int[3]
     # (pointers..., dtype, N, R, H, W, C, P, spatial_scale, stream)
     "mrcnn_crop_resize_fwd": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F,
                               _P),

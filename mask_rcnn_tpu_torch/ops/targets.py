@@ -1,31 +1,68 @@
-"""The device-side halves of the training target creators: the wrappers of
-kernels K8 and K9 (``csrc/targets.cu``) and their plain torch versions.
+"""The training target creators' device work: the wrappers of kernels K9a
+and K9b (``csrc/targets.cu``) and their plain torch versions.
 
-* :func:`mask_crop_resize` (K8): the cv2-parity bilinear crop-resize of
-  (bit-packed) gt masks to the sampled rois,
-  ``mask_rcnn_tpu/models/targets.py::_crop_resize_masks_indexed`` with
-  ``_mask_sample_coords``, batched over images;
-* :func:`anchor_match` and :func:`proposal_match` (K9): each box's IoU
-  match to the gt boxes and the label rules before sampling, the first
-  halves of ``anchor_targets`` and ``proposal_targets``.
+* :func:`anchor_targets` (K9a): ``mask_rcnn_tpu/models/targets.py::
+  anchor_targets`` whole, batched over images: IoU matching of every anchor
+  to the gt boxes, the label rules, the uniform sample of positives and
+  negatives by given priorities, and the regression targets;
+* :func:`proposal_targets` (K9b, with the mask-target crop-resize K8):
+  ``proposal_targets`` whole: matching of the rois and gt boxes, the
+  sample's slot order, its rois, class labels and normalised locs, and the
+  positive slots' mask targets (``_crop_resize_masks_indexed``).
 
-A CPU tensor takes the plain version, a CUDA tensor the kernel (or a
-``ValueError`` for what the kernel does not take). The plain versions
-follow the JAX package op for op, and the kernels repeat their arithmetic
-bit for bit: the rules downstream (IoU thresholds, ``iou == gt_max``,
-``interp > 0.5``) are discontinuous.
+Each is one kernel launch on the card. A CPU tensor takes the plain
+version, a CUDA tensor the kernel (or a ``ValueError`` for what the kernel
+does not take). The plain versions follow the JAX package op for op, and
+the kernels repeat their arithmetic bit for bit: the rules downstream (IoU
+thresholds, ``iou == gt_max``, ``interp > 0.5``) are discontinuous, and
+the kernels must pick the same samples.
+
+The plain versions' parts, :func:`anchor_match_plain`,
+:func:`proposal_match_plain` and :func:`mask_crop_resize_plain`, are also
+callable alone on CPU tensors (:func:`anchor_match`,
+:func:`proposal_match`, :func:`mask_crop_resize`); on the card they exist
+only inside the two kernels.
+
+**Priorities.** Sampling without replacement takes the top-k of iid
+uniform priorities over the candidates (``lax.top_k``'s order: larger
+first, ties toward the lower index). Both versions take the priorities as
+(N, candidates) float32 tensors of finite values, as ``torch.rand`` draws
+them.
 """
 
 from __future__ import annotations
 
+import ctypes
+import dataclasses
+
 import torch
 
 from mask_rcnn_tpu_torch.ops import _kernels
-from mask_rcnn_tpu_torch.ops.boxes import bbox_iou
+from mask_rcnn_tpu_torch.ops.boxes import bbox2loc, bbox_iou
+from mask_rcnn_tpu_torch.ops.tensors import constant, top_k_stable
 
-# csrc/targets.cu::kMaxG: a block keeps its image's gt boxes in shared
-# memory.
-MAX_GT = 256
+
+
+@dataclasses.dataclass(frozen=True)
+class AnchorTargetConfig:
+    """chainercv AnchorTargetCreator defaults."""
+
+    n_sample: int = 256
+    pos_iou_thresh: float = 0.7
+    neg_iou_thresh: float = 0.3
+    pos_ratio: float = 0.5
+
+
+@dataclasses.dataclass(frozen=True)
+class ProposalTargetConfig:
+    """Reference ProposalTargetCreator defaults."""
+
+    n_sample: int = 512
+    pos_ratio: float = 0.25
+    pos_iou_thresh: float = 0.5
+    neg_iou_thresh_hi: float = 0.5
+    neg_iou_thresh_lo: float = 0.0
+    mask_size: int = 14
 
 
 def _check_cuda(t, name, dtype, shape, device):
@@ -40,20 +77,34 @@ def _check_cuda(t, name, dtype, shape, device):
                          f"{tuple(t.shape)}")
 
 
-def _check_gt(bbox, bbox_valid, n, device):
+def kernel_limits():
+    """The kernels' limits, owned by ``csrc/targets.cu``: (gt boxes an image
+    (kept in shared memory), anchors (K9a), rois + gts an image (K9b))."""
+    out = (ctypes.c_int * 3)()
+    _kernels.lib().mrcnn_targets_limits(out)
+    return tuple(out)
+
+
+def _check_gt(bbox, bbox_valid, n, device, max_gt):
     if bbox.dim() != 3 or bbox.shape[0] != n or bbox.shape[2] != 4:
         raise ValueError(f"gt boxes must be (N, G, 4), got "
                          f"{tuple(bbox.shape)}")
     g = bbox.shape[1]
-    if not 1 <= g <= MAX_GT:
-        raise ValueError(f"the kernel takes 1 <= G <= {MAX_GT} gt boxes")
+    if not 1 <= g <= max_gt:
+        raise ValueError(f"the kernel takes 1 <= G <= {max_gt} gt boxes")
     _check_cuda(bbox, "gt boxes", torch.float32, (n, g, 4), device)
     _check_cuda(bbox_valid, "gt validity", torch.bool, (n, g), device)
     return g
 
 
+def _cpu_only(t, name, kernel):
+    if t.device.type != "cpu":
+        raise ValueError(f"{name} is the plain version only; on the card it "
+                         f"runs inside {kernel}")
+
+
 # --------------------------------------------------------------------------
-# K9: matching
+# The plain versions' parts
 
 
 def _inside(anchors, img_size):
@@ -64,7 +115,7 @@ def _inside(anchors, img_size):
 
 def anchor_match_plain(anchors, bbox, bbox_valid, img_size, pos_thresh,
                        neg_thresh):
-    """Plain K9, anchor side (mask_rcnn_tpu/models/targets.py:76-101).
+    """Anchor matching (mask_rcnn_tpu/models/targets.py:76-101).
 
     anchors (S, 4), bbox (N, G, 4), bbox_valid (N, G) -> (argmax (N, S)
     int64, the matched gt of each anchor; label (N, S) int32 in {-1, 0, 1}
@@ -93,37 +144,15 @@ def anchor_match_plain(anchors, bbox, bbox_valid, img_size, pos_thresh,
 
 def anchor_match(anchors, bbox, bbox_valid, img_size, pos_thresh,
                  neg_thresh):
-    """K9 wrapper, anchor side; see :func:`anchor_match_plain`."""
-    if anchors.device.type == "cpu":
-        return anchor_match_plain(anchors, bbox, bbox_valid, img_size,
-                                  pos_thresh, neg_thresh)
-    if anchors.dim() != 2 or anchors.shape[1] != 4:
-        raise ValueError("anchors must be (S, 4)")
-    s = anchors.shape[0]
-    _check_cuda(anchors, "anchors", torch.float32, (s, 4), None)
-    n = bbox.shape[0]
-    g = _check_gt(bbox, bbox_valid, n, anchors.device)
-    gt_max = torch.empty((n, g), dtype=torch.int32, device=anchors.device)
-    argmax = torch.empty((n, s), dtype=torch.int64, device=anchors.device)
-    label = torch.empty((n, s), dtype=torch.int32, device=anchors.device)
-    h, w = img_size
-    err = _kernels.lib().mrcnn_anchor_match(
-        anchors.data_ptr(), bbox.data_ptr(), bbox_valid.data_ptr(),
-        gt_max.data_ptr(), n, s, g, float(h), float(w), float(pos_thresh),
-        float(neg_thresh), argmax.data_ptr(), label.data_ptr(),
-        _kernels.stream_ptr(anchors.device),
-    )
-    _kernels.check(err, "mrcnn_anchor_match")
-    anchor_match.launches += 1
-    return argmax, label
-
-
-anchor_match.launches = 0
+    """:func:`anchor_match_plain` on CPU tensors."""
+    _cpu_only(anchors, "anchor_match", "anchor_targets (K9a)")
+    return anchor_match_plain(anchors, bbox, bbox_valid, img_size,
+                              pos_thresh, neg_thresh)
 
 
 def proposal_match_plain(cand, cand_valid, bbox, bbox_valid, pos_thresh,
                          neg_thresh_hi, neg_thresh_lo):
-    """Plain K9, proposal side (mask_rcnn_tpu/models/targets.py:276-298).
+    """Proposal matching (mask_rcnn_tpu/models/targets.py:276-298).
 
     cand (N, P, 4), cand_valid (N, P), bbox (N, G, 4), bbox_valid (N, G) ->
     (argmax (N, P) int64, the matched gt; pos (N, P) bool, positive
@@ -144,36 +173,10 @@ def proposal_match_plain(cand, cand_valid, bbox, bbox_valid, pos_thresh,
 
 def proposal_match(cand, cand_valid, bbox, bbox_valid, pos_thresh,
                    neg_thresh_hi, neg_thresh_lo):
-    """K9 wrapper, proposal side; see :func:`proposal_match_plain`."""
-    if cand.device.type == "cpu":
-        return proposal_match_plain(cand, cand_valid, bbox, bbox_valid,
-                                    pos_thresh, neg_thresh_hi, neg_thresh_lo)
-    if cand.dim() != 3 or cand.shape[2] != 4:
-        raise ValueError("candidates must be (N, P, 4)")
-    n, p = cand.shape[:2]
-    _check_cuda(cand, "candidates", torch.float32, (n, p, 4), None)
-    _check_cuda(cand_valid, "candidate validity", torch.bool, (n, p),
-                cand.device)
-    g = _check_gt(bbox, bbox_valid, n, cand.device)
-    argmax = torch.empty((n, p), dtype=torch.int64, device=cand.device)
-    pos = torch.empty((n, p), dtype=torch.bool, device=cand.device)
-    neg = torch.empty((n, p), dtype=torch.bool, device=cand.device)
-    err = _kernels.lib().mrcnn_proposal_match(
-        cand.data_ptr(), cand_valid.data_ptr(), bbox.data_ptr(),
-        bbox_valid.data_ptr(), n, p, g, float(pos_thresh),
-        float(neg_thresh_hi), float(neg_thresh_lo), argmax.data_ptr(),
-        pos.data_ptr(), neg.data_ptr(), _kernels.stream_ptr(cand.device),
-    )
-    _kernels.check(err, "mrcnn_proposal_match")
-    proposal_match.launches += 1
-    return argmax, pos, neg
-
-
-proposal_match.launches = 0
-
-
-# --------------------------------------------------------------------------
-# K8: mask-target crop-resize
+    """:func:`proposal_match_plain` on CPU tensors."""
+    _cpu_only(cand, "proposal_match", "proposal_targets (K9b)")
+    return proposal_match_plain(cand, cand_valid, bbox, bbox_valid,
+                                pos_thresh, neg_thresh_hi, neg_thresh_lo)
 
 
 def mask_sample_coords(rois, size, out_size):
@@ -212,7 +215,8 @@ def mask_sample_coords(rois, size, out_size):
 
 
 def mask_crop_resize_plain(masks, gt_index, rois, out_size, packed=False):
-    """Plain K8 (mask_rcnn_tpu/models/targets.py:190-238), batched.
+    """Mask-target crop-resize, K8's function
+    (mask_rcnn_tpu/models/targets.py:190-238), batched.
 
     masks (N, G, H, W) binary, or (N, G, H, W/8) uint8 bit-packed along W
     (``np.packbits`` order) when ``packed``; gt_index (N, Q) gt of each roi;
@@ -254,35 +258,233 @@ def mask_crop_resize_plain(masks, gt_index, rois, out_size, packed=False):
 
 
 def mask_crop_resize(masks, gt_index, rois, out_size, packed=False):
-    """K8 wrapper; see :func:`mask_crop_resize_plain`. On the GPU the masks
-    must be a contiguous uint8 (or bool, unpacked) tensor, gt_index int64
-    and rois float32, all contiguous on one device."""
-    if masks.device.type == "cpu":
-        return mask_crop_resize_plain(masks, gt_index, rois, out_size,
-                                      packed)
-    if masks.dim() != 4:
-        raise ValueError("masks must be (N, G, H, W) or (N, G, H, W/8)")
-    if masks.dtype == torch.bool and not packed:
-        masks = masks.view(torch.uint8)
-    n, g, h, wm = masks.shape
-    _check_cuda(masks, "masks", torch.uint8, (n, g, h, wm), None)
-    if rois.dim() != 3:
-        raise ValueError("rois must be (N, Q, 4)")
-    q = rois.shape[1]
-    _check_cuda(rois, "rois", torch.float32, (n, q, 4), masks.device)
-    _check_cuda(gt_index, "gt_index", torch.int64, (n, q), masks.device)
-    if out_size < 1:
-        raise ValueError("out_size must be >= 1")
-    out = torch.empty((n, q, out_size, out_size), dtype=torch.int32,
-                      device=masks.device)
-    err = _kernels.lib().mrcnn_mask_crop_resize(
-        masks.data_ptr(), gt_index.data_ptr(), rois.data_ptr(), n, g, h, wm,
-        q, out_size, int(bool(packed)), out.data_ptr(),
-        _kernels.stream_ptr(masks.device),
+    """:func:`mask_crop_resize_plain` on CPU tensors."""
+    _cpu_only(masks, "mask_crop_resize", "proposal_targets (K9b)")
+    return mask_crop_resize_plain(masks, gt_index, rois, out_size, packed)
+
+
+def _sample_masked(priority, candidate_mask, k_static):
+    """Uniform sample of up to ``k_static`` True positions per row of a
+    (N, S) mask, given (N, S) uniform priorities.
+
+    Returns (idx (N, k), picked (N, k) bool), k = min(k_static, S): the
+    top-k of the masked priorities by a stable descending sort
+    (``lax.top_k``'s tie order). Fewer than k candidates -> all candidates
+    picked.
+    """
+    priority = torch.where(candidate_mask, priority, -torch.inf)
+    top, idx = top_k_stable(priority, min(k_static, candidate_mask.shape[-1]))
+    return idx, torch.isfinite(top)
+
+
+def _gather_rows(x, idx):
+    """x (N, S, K), idx (N, D) -> (N, D, K)."""
+    return torch.gather(x, 1, idx[..., None].expand(*idx.shape, x.shape[-1]))
+
+
+# --------------------------------------------------------------------------
+# K9a: anchor_targets
+
+
+def anchor_targets_plain(bbox, bbox_valid, anchors, img_size, pri_pos,
+                         pri_neg, cfg: AnchorTargetConfig):
+    """Plain K9a (mask_rcnn_tpu/models/targets.py::anchor_targets), batched.
+
+    bbox (N, G, 4), bbox_valid (N, G), anchors (S, 4), priorities (N, S)
+    each -> (loc (N, S, 4), garbage where label != 1; label (N, S) int32
+    in {-1 ignore, 0 neg, 1 pos}).
+    """
+    n, s = bbox.shape[0], anchors.shape[0]
+    argmax, label = anchor_match_plain(anchors, bbox, bbox_valid, img_size,
+                                       cfg.pos_iou_thresh,
+                                       cfg.neg_iou_thresh)
+
+    # Subsample positives to pos_ratio * n_sample, then negatives to fill.
+    n_pos_quota = int(cfg.pos_ratio * cfg.n_sample)
+    pos_idx, pos_picked = _sample_masked(pri_pos, label == 1, n_pos_quota)
+    n_pos = pos_picked.sum(dim=-1, keepdim=True)
+    neg_idx, neg_avail = _sample_masked(pri_neg, label == 0, cfg.n_sample)
+    rank = torch.arange(neg_idx.shape[-1], device=anchors.device)
+    neg_picked = neg_avail & (rank < cfg.n_sample - n_pos)
+
+    # Anything labeled but not picked gets disabled to -1. Scatter with max
+    # (never unset): unpicked top-k slots carry arbitrary indices.
+    keep = torch.zeros((n, s), dtype=torch.int32, device=anchors.device)
+    keep.scatter_reduce_(1, pos_idx, pos_picked.to(torch.int32), "amax")
+    keep.scatter_reduce_(1, neg_idx, neg_picked.to(torch.int32), "amax")
+    label = torch.where(keep > 0, label, -1)
+
+    loc = bbox2loc(anchors, _gather_rows(bbox, argmax))
+    return loc, label
+
+
+def anchor_targets(bbox, bbox_valid, anchors, img_size, pri_pos, pri_neg,
+                   cfg: AnchorTargetConfig):
+    """K9a wrapper; see :func:`anchor_targets_plain`. On the card: float32
+    anchors, boxes and priorities, bool validity, all contiguous on one
+    device, G and S within :func:`kernel_limits`."""
+    if anchors.device.type == "cpu":
+        return anchor_targets_plain(bbox, bbox_valid, anchors, img_size,
+                                    pri_pos, pri_neg, cfg)
+    if anchors.dim() != 2 or anchors.shape[1] != 4:
+        raise ValueError("anchors must be (S, 4)")
+    s = anchors.shape[0]
+    max_gt, max_anchors, _ = kernel_limits()
+    if not 1 <= s <= max_anchors:
+        raise ValueError(f"the kernel takes 1 <= S <= {max_anchors} anchors")
+    dev = anchors.device
+    _check_cuda(anchors, "anchors", torch.float32, (s, 4), None)
+    n = bbox.shape[0]
+    g = _check_gt(bbox, bbox_valid, n, dev, max_gt)
+    _check_cuda(pri_pos, "positive priorities", torch.float32, (n, s), dev)
+    _check_cuda(pri_neg, "negative priorities", torch.float32, (n, s), dev)
+    loc = torch.empty((n, s, 4), dtype=torch.float32, device=dev)
+    label = torch.empty((n, s), dtype=torch.int32, device=dev)
+    h, w = img_size
+    err = _kernels.lib().mrcnn_anchor_targets(
+        anchors.data_ptr(), bbox.data_ptr(), bbox_valid.data_ptr(),
+        pri_pos.data_ptr(), pri_neg.data_ptr(), n, s, g, float(h), float(w),
+        float(cfg.pos_iou_thresh), float(cfg.neg_iou_thresh),
+        int(cfg.pos_ratio * cfg.n_sample), cfg.n_sample, loc.data_ptr(),
+        label.data_ptr(), _kernels.stream_ptr(dev),
     )
-    _kernels.check(err, "mrcnn_mask_crop_resize")
-    mask_crop_resize.launches += 1
-    return out
+    _kernels.check(err, "mrcnn_anchor_targets")
+    anchor_targets.launches += 1
+    return loc, label
 
 
-mask_crop_resize.launches = 0
+anchor_targets.launches = 0
+
+
+# --------------------------------------------------------------------------
+# K9b + K8: proposal_targets
+
+
+def proposal_targets_plain(roi, roi_valid, bbox, label, bbox_valid, mask,
+                           pri_pos, pri_neg, cfg: ProposalTargetConfig,
+                           loc_normalize_mean, loc_normalize_std,
+                           mask_packed=False):
+    """Plain K9b + K8 (mask_rcnn_tpu/models/targets.py::proposal_targets),
+    batched.
+
+    roi (N, P, 4), roi_valid (N, P); bbox (N, G, 4), label (N, G) in
+    [0, n_fg), bbox_valid (N, G); mask (N, G, H, W) binary, or (N, G, H,
+    W/8) bit-packed when ``mask_packed``; priorities (N, P + G) each ->
+    (sample_roi (N, ns, 4), positives first; gt_loc (N, ns, 4) normalised;
+    gt_label (N, ns) int64, -1 for unused slots; gt_mask (N, ns, M, M)
+    int32 {0, 1}, -1 everywhere for non-positive slots).
+    """
+    ns = cfg.n_sample
+    dev = roi.device
+    # The reference concatenates the gt boxes into the candidate pool.
+    cand = torch.cat([roi, bbox], dim=1)
+    cand_valid = torch.cat([roi_valid, bbox_valid], dim=1)
+    n = cand_valid.shape[0]
+    gt_assignment, pos_cand, neg_cand = proposal_match_plain(
+        cand, cand_valid, bbox, bbox_valid, cfg.pos_iou_thresh,
+        cfg.neg_iou_thresh_hi, cfg.neg_iou_thresh_lo)
+
+    pos_quota = int(round(ns * cfg.pos_ratio))
+    pos_idx, pos_picked = _sample_masked(pri_pos, pos_cand, pos_quota)
+    n_pos = pos_picked.sum(dim=-1, keepdim=True)
+    neg_idx, neg_avail = _sample_masked(pri_neg, neg_cand, ns)
+    rank = torch.arange(neg_idx.shape[-1], device=dev)
+    neg_picked = neg_avail & (rank < ns - n_pos)
+
+    # Compact [positives..., negatives...] into n_sample slots, positives
+    # first, each group in its top-k order.
+    all_idx = torch.cat([pos_idx, neg_idx], dim=1)
+    all_picked = torch.cat([pos_picked, neg_picked], dim=1)
+    is_pos = torch.cat([pos_picked, torch.zeros_like(neg_picked)], dim=1)
+    short = ns - all_idx.shape[1]
+    if short > 0:  # tiny candidate pools (tests)
+        all_idx = torch.nn.functional.pad(all_idx, (0, short))
+        all_picked = torch.nn.functional.pad(all_picked, (0, short))
+        is_pos = torch.nn.functional.pad(is_pos, (0, short))
+    take = torch.sort((~all_picked).to(torch.uint8), dim=1,
+                      stable=True).indices[:, :ns]
+    sel_idx = torch.gather(all_idx, 1, take)
+    sel_valid = torch.gather(all_picked, 1, take)
+    sel_pos = torch.gather(is_pos, 1, take)
+
+    sample_roi = _gather_rows(cand, sel_idx)
+    sel_gt = torch.gather(gt_assignment, 1, sel_idx)
+    gt_roi_label = torch.gather(label.to(torch.int64), 1, sel_gt) + 1
+    gt_roi_label = torch.where(sel_pos, gt_roi_label, 0)
+    gt_roi_label = torch.where(sel_valid, gt_roi_label, -1)
+
+    gt_loc = bbox2loc(sample_roi, _gather_rows(bbox, sel_gt))
+    gt_loc = ((gt_loc - constant(tuple(loc_normalize_mean), dev))
+              / constant(tuple(loc_normalize_std), dev))
+
+    # Only positives carry mask targets, and the compaction above puts them
+    # all in the first pos_quota slots: crop-resize just those rois.
+    n_crop = min(pos_quota, ns)
+    crops = mask_crop_resize_plain(
+        mask, sel_gt[:, :n_crop].contiguous(),
+        sample_roi[:, :n_crop].contiguous(), cfg.mask_size,
+        packed=mask_packed,
+    )
+    m = cfg.mask_size
+    gt_mask = torch.full((n, ns, m, m), -1, dtype=torch.int32, device=dev)
+    gt_mask[:, :n_crop] = torch.where(sel_pos[:, :n_crop, None, None],
+                                      crops, -1)
+    return sample_roi, gt_loc, gt_roi_label, gt_mask
+
+
+def proposal_targets(roi, roi_valid, bbox, label, bbox_valid, mask, pri_pos,
+                     pri_neg, cfg: ProposalTargetConfig, loc_normalize_mean,
+                     loc_normalize_std, mask_packed=False):
+    """K9b + K8 wrapper; see :func:`proposal_targets_plain`. On the card:
+    float32 rois, boxes and priorities, bool validity, int32 labels, uint8
+    (or bool, unpacked) masks, all contiguous on one device,
+    G and P + G within :func:`kernel_limits`."""
+    if roi.device.type == "cpu":
+        return proposal_targets_plain(
+            roi, roi_valid, bbox, label, bbox_valid, mask, pri_pos, pri_neg,
+            cfg, loc_normalize_mean, loc_normalize_std, mask_packed)
+    if roi.dim() != 3 or roi.shape[2] != 4:
+        raise ValueError("rois must be (N, P, 4)")
+    n, p = roi.shape[:2]
+    dev = roi.device
+    _check_cuda(roi, "rois", torch.float32, (n, p, 4), None)
+    _check_cuda(roi_valid, "roi validity", torch.bool, (n, p), dev)
+    max_gt, _, max_cand = kernel_limits()
+    g = _check_gt(bbox, bbox_valid, n, dev, max_gt)
+    if p + g > max_cand:
+        raise ValueError(f"the kernel takes P + G <= {max_cand} "
+                         f"candidates, got {p + g}")
+    _check_cuda(label, "gt labels", torch.int32, (n, g), dev)
+    if mask.dim() != 4:
+        raise ValueError("masks must be (N, G, H, W) or (N, G, H, W/8)")
+    if mask.dtype == torch.bool and not mask_packed:
+        mask = mask.view(torch.uint8)
+    hm, wm = mask.shape[2:]
+    _check_cuda(mask, "masks", torch.uint8, (n, g, hm, wm), dev)
+    for pri, name in ((pri_pos, "positive"), (pri_neg, "negative")):
+        _check_cuda(pri, f"{name} priorities", torch.float32, (n, p + g),
+                    dev)
+    ns, m = cfg.n_sample, cfg.mask_size
+    if ns < 1 or m < 1:
+        raise ValueError("n_sample and mask_size must be >= 1")
+    sample_roi = torch.empty((n, ns, 4), dtype=torch.float32, device=dev)
+    gt_loc = torch.empty((n, ns, 4), dtype=torch.float32, device=dev)
+    gt_label = torch.empty((n, ns), dtype=torch.int64, device=dev)
+    gt_mask = torch.empty((n, ns, m, m), dtype=torch.int32, device=dev)
+    norm = (ctypes.c_float * 8)(*loc_normalize_mean, *loc_normalize_std)
+    err = _kernels.lib().mrcnn_proposal_targets(
+        roi.data_ptr(), roi_valid.data_ptr(), bbox.data_ptr(),
+        bbox_valid.data_ptr(), label.data_ptr(), mask.data_ptr(),
+        pri_pos.data_ptr(), pri_neg.data_ptr(), norm, n, p, g, hm, wm,
+        int(bool(mask_packed)),
+        float(cfg.pos_iou_thresh), float(cfg.neg_iou_thresh_hi),
+        float(cfg.neg_iou_thresh_lo), ns, int(round(ns * cfg.pos_ratio)), m,
+        sample_roi.data_ptr(), gt_loc.data_ptr(), gt_label.data_ptr(),
+        gt_mask.data_ptr(), _kernels.stream_ptr(dev),
+    )
+    _kernels.check(err, "mrcnn_proposal_targets")
+    proposal_targets.launches += 1
+    return sample_roi, gt_loc, gt_label, gt_mask
+
+
+proposal_targets.launches = 0

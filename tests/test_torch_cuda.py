@@ -12,6 +12,7 @@ import torch
 from mask_rcnn_tpu_torch.ops import nms, roi_align
 from tests.oracles import random_boxes
 from tests.torch_nms_cases import NMS_EDGE_CASES, dyadic_boxes, nms_case
+from tests.torch_target_cases import CARD_CASES, anchor_case, proposal_case
 
 pytestmark = pytest.mark.cuda
 
@@ -269,6 +270,60 @@ def test_roi_align_autograd_runs_both_kernels(dev):
     torch.testing.assert_close(f.grad.cpu(), fc.grad, rtol=1e-5, atol=1e-5)
 
 
+def as_torch(case, *keys):
+    return [torch.from_numpy(np.ascontiguousarray(case[k])) for k in keys]
+
+
+@pytest.mark.parametrize("case", CARD_CASES)
+def test_anchor_targets_kernel_matches_plain(dev, case):
+    """K9a against its plain version on the card (the same libm): labels
+    identical, locs within 1e-6."""
+    from mask_rcnn_tpu_torch.ops import targets
+
+    c = anchor_case(case)
+    args = [a.to(dev) for a in as_torch(c, "bbox", "bbox_valid", "anchors")]
+    pri = [a.to(dev) for a in as_torch(c, "pri_pos", "pri_neg")]
+    cfg = targets.AnchorTargetConfig(n_sample=c["n_sample"])
+    before = targets.anchor_targets.launches
+    loc, label = targets.anchor_targets(*args, c["img_size"], *pri, cfg)
+    assert targets.anchor_targets.launches == before + 1
+    want_loc, want_label = targets.anchor_targets_plain(
+        *args, c["img_size"], *pri, cfg)
+    assert label.dtype == torch.int32 and loc.shape == want_loc.shape
+    assert torch.equal(label, want_label)
+    torch.testing.assert_close(loc, want_loc, rtol=1e-6, atol=1e-6)
+    assert (want_label == 1).any() and (want_label == 0).any()
+
+
+@pytest.mark.parametrize("packed", [True, False])
+@pytest.mark.parametrize("case", CARD_CASES)
+def test_proposal_targets_kernel_matches_plain(dev, case, packed):
+    """K9b + K8 against their plain version on the card: sample rois,
+    labels and masks identical (unfilled slots included), locs within
+    1e-6."""
+    from mask_rcnn_tpu_torch.ops import targets
+
+    from mask_rcnn_tpu_torch.data.loader import pack_mask_bits
+
+    c = proposal_case(case)
+    if packed:
+        c["masks"] = pack_mask_bits(c["masks"])
+    args = [a.to(dev) for a in as_torch(
+        c, "roi", "roi_valid", "bbox", "label", "bbox_valid", "masks",
+        "pri_pos", "pri_neg")]
+    cfg = targets.ProposalTargetConfig(n_sample=c["n_sample"])
+    norm = ((0.0, 0.0, 0.0, 0.0), (0.1, 0.1, 0.2, 0.2))
+    before = targets.proposal_targets.launches
+    got = targets.proposal_targets(*args, cfg, *norm, packed)
+    assert targets.proposal_targets.launches == before + 1
+    want = targets.proposal_targets_plain(*args, cfg, *norm, packed)
+    for k in (0, 2, 3):
+        assert got[k].dtype == want[k].dtype
+        assert torch.equal(got[k], want[k]), k
+    torch.testing.assert_close(got[1], want[1], rtol=1e-6, atol=1e-6)
+    assert (want[3] >= 0).any()
+
+
 def tie_masks(rng, n, g, h, w):
     """Rectangles with edges on even rows/columns: a 28-pixel crop sampled
     at 14 lands exactly midway between two mask rows (interp == 0.5)."""
@@ -283,94 +338,109 @@ def tie_masks(rng, n, g, h, w):
 
 
 @pytest.mark.parametrize("packed", [True, False])
-def test_mask_crop_resize_kernel_matches_plain(dev, packed):
+def test_proposal_targets_kernel_masks_at_exact_ties(dev, packed):
+    """K8 inside K9b on crops of 28 and 14 pixels at even and odd offsets
+    (exact-0.5 interpolations), half-integer boxes (rounded half to even),
+    a box at the image's corner, a sub-pixel gt (its rounded crop is empty
+    and clamps to one pixel) and the whole image: identical to the plain
+    version."""
     from mask_rcnn_tpu_torch.data.loader import pack_mask_bits
     from mask_rcnn_tpu_torch.ops import targets
 
     rng = np.random.RandomState(3)
-    n, g, h, w, q = 2, 5, 64, 96, 40
+    n, h, w = 2, 64, 96
+    ties = np.array([[0, 0, 28, 28], [2, 4, 30, 32], [1, 3, 29, 17],
+                     [10.5, 11.5, 38.5, 25.5], [h - 3, w - 3, h, w],
+                     [3.5, 2.5, 31.5, 30.5], [5, 5, 5.4, 5.4],
+                     [0, 0, h, w]], np.float32)
+    bbox = np.stack([ties] * n)
+    g = len(ties)
+    roi = np.stack([np.concatenate([ties, random_boxes(rng, 40, h, w)])
+                    for _ in range(n)])
     masks = tie_masks(rng, n, g, h, w)
-    rois = np.stack([random_boxes(rng, q, h, w, min_size=1)
-                     for _ in range(n)])
-    # crops of 28 and 14 pixels at even and odd offsets: exact ties
-    rois[:, :8] = [[0, 0, 28, 28], [2, 4, 30, 32], [1, 3, 29, 17],
-                   [10.5, 11.5, 38.5, 25.5], [0, 0, h, w], [5, 5, 5, 5],
-                   [h - 3, w - 3, h, w], [3.5, 2.5, 31.5, 30.5]]
-    gt_index = rng.randint(0, g, (n, q)).astype(np.int64)
     m = pack_mask_bits(masks) if packed else masks
-    args = [torch.from_numpy(a) for a in (m, gt_index, rois)]
-    got = targets.mask_crop_resize(*(a.to(dev) for a in args), 14, packed)
-    want = targets.mask_crop_resize_plain(*args, 14, packed)
-    assert got.dtype == torch.int32
-    assert torch.equal(got.cpu(), want)
-
-
-def test_match_kernels_match_plain(dev):
-    from mask_rcnn_tpu_torch.models.mask_rcnn import MaskRCNNConfig, \
-        make_anchors
-    from mask_rcnn_tpu_torch.ops import targets
-
-    rng = np.random.RandomState(4)
-    cfg = MaskRCNNConfig(n_fg_class=3, anchor_scales=(2, 4, 8, 16, 32))
-    h, w = 320, 480
-    anchors = torch.from_numpy(make_anchors(cfg, h // 16, w // 16))
-    n, g = 3, 8
-    bbox = np.stack([random_boxes(rng, g, h, w, min_size=8)
-                     for _ in range(n)])
-    # ties: a duplicated gt, and a gt equal to an anchor
-    bbox[0, 1] = bbox[0, 0]
-    bbox[0, 2] = anchors[1000].numpy()
-    valid = np.ones((n, g), bool)
-    valid[1, 5:] = False
-    valid[2] = False  # no valid gt
-    bbox, valid = torch.from_numpy(bbox), torch.from_numpy(valid)
-    got = targets.anchor_match(anchors.to(dev), bbox.to(dev), valid.to(dev),
-                               (h, w), 0.7, 0.3)
-    want = targets.anchor_match_plain(anchors, bbox, valid, (h, w), 0.7, 0.3)
-    for a, b in zip(got, want):
-        assert torch.equal(a.cpu(), b)
-    assert (want[1][0] == 1).any()
-
-    cand = np.stack([np.concatenate([random_boxes(rng, 300, h, w),
-                                     bbox[i].numpy()]) for i in range(n)])
-    cand = torch.from_numpy(cand)
-    cvalid = torch.from_numpy(rng.rand(n, 308) > 0.1)
-    got = targets.proposal_match(cand.to(dev), cvalid.to(dev), bbox.to(dev),
-                                 valid.to(dev), 0.5, 0.5, 0.0)
-    want = targets.proposal_match_plain(cand, cvalid, bbox, valid, 0.5, 0.5,
-                                        0.0)
-    for a, b in zip(got, want):
-        assert torch.equal(a.cpu(), b)
-    assert want[2][2].any() and not want[1][2].any()  # zero-gt background
+    pri_pos = rng.rand(n, roi.shape[1] + g).astype(np.float32)
+    pri_pos[:, -2:] = 2.0  # the sub-pixel and whole-image gts lead
+    arrays = (roi, rng.rand(n, len(roi[0])) > 0.05, bbox,
+              rng.randint(0, 80, (n, g)).astype(np.int32),
+              np.ones((n, g), bool), m, pri_pos,
+              rng.rand(n, roi.shape[1] + g).astype(np.float32))
+    args = [torch.from_numpy(a).to(dev) for a in arrays]
+    cfg = targets.ProposalTargetConfig(n_sample=64)  # 16 positive slots
+    norm = ((0.0, 0.0, 0.0, 0.0), (0.1, 0.1, 0.2, 0.2))
+    got = targets.proposal_targets(*args, cfg, *norm, packed)
+    want = targets.proposal_targets_plain(*args, cfg, *norm, packed)
+    for k in (0, 2, 3):
+        assert torch.equal(got[k], want[k]), k
+    assert (want[2] > 0).sum() >= 2 * g  # the tie crops are sampled
+    # both edge gts take the first two slots as positive crops
+    assert torch.equal(want[0][:, :2].cpu(), torch.from_numpy(bbox[:, -2:]))
+    assert (want[2][:, :2] > 0).all() and (want[3][:, :2] >= 0).all()
 
 
 def test_target_wrappers_reject_what_the_kernels_do_not_take(dev):
     from mask_rcnn_tpu_torch.ops import targets
 
+    acfg, pcfg = targets.AnchorTargetConfig(), targets.ProposalTargetConfig()
+    norm = ((0.0, 0.0, 0.0, 0.0), (0.1, 0.1, 0.2, 0.2))
+    assert targets.kernel_limits() == (256, 8 * 24576, 4096)
     anchors = torch.zeros((10, 4), device=dev)
     bbox = torch.zeros((1, 3, 4), device=dev)
     valid = torch.ones((1, 3), dtype=torch.bool, device=dev)
+    pri = torch.zeros((1, 10), device=dev)
+    with pytest.raises(ValueError, match="196608"):  # too many anchors
+        big = torch.zeros((8 * 24576 + 1, 4), device=dev)
+        big_pri = torch.zeros((1, len(big)), device=dev)
+        targets.anchor_targets(bbox, valid, big, (8, 8), big_pri, big_pri,
+                               acfg)
     with pytest.raises(ValueError):  # float64 anchors
-        targets.anchor_match(anchors.double(), bbox, valid, (8, 8), .7, .3)
+        targets.anchor_targets(bbox, valid, anchors.double(), (8, 8), pri,
+                               pri, acfg)
     with pytest.raises(ValueError):  # no gt slot
-        targets.anchor_match(anchors, bbox[:, :0], valid[:, :0], (8, 8),
-                             .7, .3)
-    with pytest.raises(ValueError):  # validity as uint8
-        targets.proposal_match(anchors[None],
-                               torch.ones((1, 10), dtype=torch.bool,
-                                          device=dev),
-                               bbox, valid.byte(), .5, .5, 0.)
+        targets.anchor_targets(bbox[:, :0], valid[:, :0], anchors, (8, 8),
+                               pri, pri, acfg)
+    with pytest.raises(ValueError):  # more gt boxes than shared memory holds
+        targets.anchor_targets(
+            torch.zeros((1, 257, 4), device=dev),
+            torch.ones((1, 257), dtype=torch.bool, device=dev), anchors,
+            (8, 8), pri, pri, acfg)
+    with pytest.raises(ValueError):  # priorities of another shape
+        targets.anchor_targets(bbox, valid, anchors, (8, 8), pri[:, :9],
+                               pri, acfg)
+    roi = torch.zeros((1, 5, 4), device=dev)
+    roi_valid = torch.ones((1, 5), dtype=torch.bool, device=dev)
+    label = torch.zeros((1, 3), dtype=torch.int32, device=dev)
     masks = torch.zeros((1, 3, 8, 1), dtype=torch.uint8, device=dev)
-    idx = torch.zeros((1, 2), dtype=torch.int64, device=dev)
-    rois = torch.zeros((1, 2, 4), device=dev)
-    with pytest.raises(ValueError):  # int32 gt index
-        targets.mask_crop_resize(masks, idx.int(), rois, 14, True)
+    ppri = torch.zeros((1, 8), device=dev)
+    with pytest.raises(ValueError):  # validity as uint8
+        targets.proposal_targets(roi, roi_valid, bbox, label, valid.byte(),
+                                 masks, ppri, ppri, pcfg, *norm, True)
+    with pytest.raises(ValueError):  # int64 labels
+        targets.proposal_targets(roi, roi_valid, bbox, label.long(), valid,
+                                 masks, ppri, ppri, pcfg, *norm, True)
     with pytest.raises(ValueError):  # non-contiguous rois
-        targets.mask_crop_resize(masks, idx, rois.transpose(0, 1), 14, True)
+        targets.proposal_targets(roi.transpose(0, 1), roi_valid, bbox,
+                                 label, valid, masks, ppri, ppri, pcfg,
+                                 *norm, True)
+    with pytest.raises(ValueError, match="4096"):  # too many candidates
+        big = torch.zeros((1, 4094, 4), device=dev)
+        targets.proposal_targets(
+            big, torch.ones((1, 4094), dtype=torch.bool, device=dev), bbox,
+            label, valid, masks, torch.zeros((1, 4097), device=dev),
+            torch.zeros((1, 4097), device=dev), pcfg, *norm, True)
+    # the plain-only parts refuse CUDA tensors and name the kernel
+    with pytest.raises(ValueError, match="anchor_targets"):
+        targets.anchor_match(anchors, bbox, valid, (8, 8), .7, .3)
+    with pytest.raises(ValueError, match="proposal_targets"):
+        targets.proposal_match(roi, roi_valid, bbox, valid, .5, .5, 0.)
+    with pytest.raises(ValueError, match="proposal_targets"):
+        targets.mask_crop_resize(masks, torch.zeros((1, 2), dtype=torch.int64,
+                                                    device=dev),
+                                 roi[:, :2], 14, True)
     with pytest.raises(ValueError):  # unsupported grad dtype
         roi_align.roi_align_grouped_backward(
             torch.zeros((1, 2, 7, 7, 8), dtype=torch.float16, device=dev),
-            rois, (4, 4), 1 / 16)
+            roi[:, :2], (4, 4), 1 / 16)
 
 
 def flat_edge_rois(rng, n, h, w, r):

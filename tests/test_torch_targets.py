@@ -1,9 +1,11 @@
 """The port's training-side ops against the JAX package on the CPU:
 ``bbox_iou``/``bbox2loc``, the losses, the plain versions of the RoIAlign
-backward (K7), the mask-target crop-resize (K8) and the anchor/proposal
-matching (K9), and both target creators. The same seeded numpy inputs go
-through both; the creators get the priorities that ``jax.random.uniform``
-draws on the JAX package's keys. Each comparison states its tolerance."""
+backward (K7), the mask-target crop-resize (K8), the anchor/proposal
+matching, and both target creators (the plain versions of K9a and K9b).
+The same seeded numpy inputs go through both; the creators get the
+priorities that ``jax.random.uniform`` draws on the JAX package's keys, or,
+at the edge cases, given priorities that the JAX creators are made to use.
+Each comparison states its tolerance."""
 
 import jax
 import jax.numpy as jnp
@@ -22,6 +24,12 @@ from mask_rcnn_tpu_torch.models import mask_rcnn, targets
 from mask_rcnn_tpu_torch.ops import boxes, losses, roi_align
 from mask_rcnn_tpu_torch.ops import targets as target_ops
 from tests.oracles import random_boxes
+from tests.torch_target_cases import (
+    CPU_CASES,
+    anchor_case,
+    proposal_case,
+    threshold_ties,
+)
 
 
 def jax_priorities(key, n, size):
@@ -318,3 +326,118 @@ def test_creators_draw_from_a_generator():
     label = outs[0][1]
     assert ((label == 1).sum(-1) <= 16).all()
     assert ((label >= 0).sum(-1) <= 32).all()
+
+
+# --------------------------------------------------------------------------
+# The creators at their edge cases (tests/torch_target_cases.py), with
+# given priorities
+
+
+def inject_priorities(monkeypatch, rows):
+    """Make the JAX creators sample by given priorities: one row per
+    ``_sample_masked`` call, in call order (per image: positives, then
+    negatives). The body is ``jax_targets._sample_masked`` with the
+    priorities taken instead of drawn."""
+    queue = [jnp.asarray(r) for r in rows]
+
+    def sample(key, candidate_mask, k_static):
+        priority = jnp.where(candidate_mask, queue.pop(0), -jnp.inf)
+        k = min(k_static, candidate_mask.shape[0])
+        top, idx = jax.lax.top_k(priority, k)
+        return idx, jnp.isfinite(top)
+
+    monkeypatch.setattr(jax_targets, "_sample_masked", sample)
+    return queue
+
+
+@pytest.mark.parametrize("case", CPU_CASES)
+def test_anchor_targets_edge_cases_identical_to_jax(monkeypatch, case):
+    c = anchor_case(case)
+    n, ns = c["bbox"].shape[0], c["n_sample"]
+    queue = inject_priorities(monkeypatch, [
+        r for i in range(n) for r in (c["pri_pos"][i], c["pri_neg"][i])])
+    jcfg = jax_targets.AnchorTargetConfig(n_sample=ns)
+    want = [jax_targets.anchor_targets(
+        jax.random.PRNGKey(0), c["bbox"][i], c["bbox_valid"][i],
+        jnp.asarray(c["anchors"]), c["img_size"], jcfg) for i in range(n)]
+    assert not queue
+    want_loc = np.stack([np.asarray(x[0]) for x in want])
+    want_label = np.stack([np.asarray(x[1]) for x in want])
+    got_loc, got_label = targets.anchor_targets(
+        t(c["bbox"]), t(c["bbox_valid"]), t(c["anchors"]), c["img_size"],
+        targets.AnchorTargetConfig(n_sample=ns),
+        priorities=(t(c["pri_pos"]), t(c["pri_neg"])))
+    np.testing.assert_array_equal(got_label.numpy(), want_label)
+    # the same ops (a true division and a log): identical up to libm
+    np.testing.assert_allclose(got_loc.numpy(), want_loc, rtol=1e-6,
+                               atol=1e-6)
+
+    _, label0 = target_ops.anchor_match_plain(
+        t(c["anchors"]), t(c["bbox"]), t(c["bbox_valid"]), c["img_size"],
+        0.7, 0.3)
+    label0 = label0.numpy()
+    quota = ns // 2
+    n_pos = np.minimum((label0 == 1).sum(1), quota)
+    assert ((want_label == 1).sum(1) == n_pos).all()
+    assert ((want_label == 0).sum(1)
+            == np.minimum((label0 == 0).sum(1), ns - n_pos)).all()
+    if case == "ties":  # equal keys straddle both cuts
+        assert threshold_ties(c["pri_pos"], label0 == 1, quota)
+        assert threshold_ties(c["pri_neg"], label0 == 0, ns - n_pos[0])
+    if case == "few_pos":
+        assert (0 < (label0 == 1).sum(1)).all()
+        assert ((label0 == 1).sum(1) < quota).all()
+    if case == "no_gt":
+        assert not (want_label[0] == 1).any() and (want_label[0] == 0).any()
+    if case == "small_pool":  # every candidate taken
+        assert len(c["anchors"]) < ns
+        np.testing.assert_array_equal(want_label, label0)
+    if case == "g1":
+        assert c["bbox"].shape[1] == 1 and (want_label == 1).any()
+
+
+@pytest.mark.parametrize("case", CPU_CASES)
+def test_proposal_targets_edge_cases_identical_to_jax(monkeypatch, case):
+    c = proposal_case(case)
+    n, ns = c["bbox"].shape[0], c["n_sample"]
+    packed = CPU_CASES.index(case) % 2 == 0
+    m = pack_mask_bits(c["masks"]) if packed else c["masks"]
+    queue = inject_priorities(monkeypatch, [
+        r for i in range(n) for r in (c["pri_pos"][i], c["pri_neg"][i])])
+    jcfg = jax_targets.ProposalTargetConfig(n_sample=ns)
+    want = [jax_targets.proposal_targets(
+        jax.random.PRNGKey(0), c["roi"][i], c["roi_valid"][i], c["bbox"][i],
+        c["label"][i], c["bbox_valid"][i], m[i], jcfg, mask_packed=packed)
+        for i in range(n)]
+    assert not queue
+    want = [np.stack([np.asarray(x[k]) for x in want]) for k in range(4)]
+    got = targets.proposal_targets(
+        t(c["roi"]), t(c["roi_valid"]), t(c["bbox"]), t(c["label"]),
+        t(c["bbox_valid"]), t(m), targets.ProposalTargetConfig(n_sample=ns),
+        mask_packed=packed, priorities=(t(c["pri_pos"]), t(c["pri_neg"])))
+    got = [x.numpy() for x in got]
+    np.testing.assert_array_equal(got[0], want[0])  # sample rois
+    np.testing.assert_array_equal(got[2], want[2])  # labels
+    np.testing.assert_array_equal(got[3], want[3])  # masks
+    np.testing.assert_allclose(got[1], want[1], rtol=1e-6, atol=1e-5)
+
+    cand = torch.cat([t(c["roi"]), t(c["bbox"])], dim=1)
+    cand_valid = torch.cat([t(c["roi_valid"]), t(c["bbox_valid"])], dim=1)
+    _, pos, neg = target_ops.proposal_match_plain(
+        cand, cand_valid, t(c["bbox"]), t(c["bbox_valid"]), 0.5, 0.5, 0.0)
+    pos, neg = pos.numpy(), neg.numpy()
+    quota = round(ns * 0.25)
+    n_pos = (want[2] > 0).sum(1)
+    assert (n_pos == np.minimum(pos.sum(1), quota)).all()
+    assert (want[3][:, :, 0, 0] >= 0).sum(1).tolist() == n_pos.tolist()
+    if case == "ties":
+        assert threshold_ties(c["pri_pos"], pos, quota)
+        assert threshold_ties(c["pri_neg"], neg, ns - n_pos[0])
+    if case == "few_pos":
+        assert (0 < n_pos).all() and (n_pos < quota).all()
+    if case == "no_gt":  # background only
+        assert not (want[2][0] > 0).any() and (want[2][0] == 0).any()
+    if case == "small_pool":  # unfilled slots
+        assert cand.shape[1] < ns and (want[2] == -1).any()
+    if case == "g1":
+        assert c["bbox"].shape[1] == 1 and (n_pos > 0).all()
