@@ -11,7 +11,12 @@ GPU.
    main paths' shapes and times both with CUDA events: RoIAlign K1 on
    (1, 52, 84, 1024) bf16 features with 1000 and 100 rois; proposal NMS K2
    6000 -> 1000 at 0.7 and, at the train counts, (2, 12000) -> 2000;
-   decode NMS K3 80 x 256 -> 100 at 0.5; RoIAlign
+   the standalone decode NMS K3 80 x 256 -> 100 at 0.5; the decode's
+   selection, K3 on the serving path (``decode_select``: per-class top-256,
+   NMS at 0.5, zero-area drop and top 100 in one launch) at Rp = 1000 and
+   81 classes, batch 1 and 2, score_thresh 0.05 and 0, bit for bit, with
+   the kernels of one whole ``decode`` call from the profiler (no sort);
+   RoIAlign
    backward K7 from (2, 512, 7, 7, 1024) bf16 to (2, 52, 84, 1024); the
    target creators, each one launch: K9a ``anchor_targets`` on 2 x 65520
    anchors and 8 gts per image, and K9b ``proposal_targets`` (with the
@@ -32,8 +37,9 @@ GPU.
    R-50-C4, COCO (80 classes), anchor scales (2, 4, 8, 16, 32), min 800 /
    max 1333 (buckets 832x1344 and 1344x832), bf16, seeded random weights:
    single images, a batch of two, and a request at ``score_thresh=0``;
-   checks the outputs and that the pooler's forward kernel (K1, K5 or K6),
-   K2 and K3 were launched during that run;
+   checks the outputs and that K10, the pooler's forward kernel (K1, K5 or
+   K6), K2 and the decode's K3 (``decode_select``) were launched during
+   that run; then profiles two batch-1 requests by kernel family;
 5. training path, once per pooler: ``make_train_step`` at the same
    configuration, bf16 compute with float32 master params, on a synthetic
    batch of 2 at the 832x1344 bucket with 8 gts per image and bit-packed
@@ -54,7 +60,8 @@ GPU.
    COCO evaluation on 4 more, a checkpoint, evaluation and a log entry
    every 4 steps; run A stops at step 4, run B resumes from its checkpoint
    (restored bit for bit) to step 8; checks the artifacts, finite losses
-   and that K10, K1, K2, K3, K7, K9a and K9b were launched.
+   and that K10, K1, K2, K3 (``decode_select``), K7, K9a and K9b were
+   launched.
 
 Prints the card's name and power limit, each path's times, one JSON line
 of kernel results (``launches`` over every main-path run above,
@@ -65,12 +72,14 @@ Exits non-zero, and prints no result, when a phase fails or no CUDA device
 is present.
 
 With ``--against OTHER_CHECKOUT`` it runs none of the above: it times K1,
-K2, K4, K7, K13, K10, the two target creators and the align train step of
-this checkout against another checkout's on the same inputs (see
+K2, K4, K7, K13, K10, the two target creators, ``decode`` at the serving
+shape, K12, the align ``predict_step`` at batch 1 and the align train step
+of this checkout against another checkout's on the same inputs (see
 :func:`run_against`).
 """
 
 import argparse
+import dataclasses
 import json
 import os
 import subprocess
@@ -108,12 +117,10 @@ def cuda_ms(torch, fn, warmup=3, iters=20):
     return start.elapsed_time(end) / iters
 
 
-def device_profile(torch, fn, iters=10):
-    """Device time and device activities (kernels, memsets, copies) per
-    call of ``fn``, from the profiler over ``iters`` calls. Unlike
-    :func:`cuda_ms` the time leaves out the gaps in which the device waits
-    for the host, so it reads a kernel whose wrapper's host work takes
-    longer than the kernel."""
+def device_events(torch, fn, iters=10):
+    """(name, device activities, device ms) per call of ``fn`` for each
+    kernel, memset and copy that it runs, from the profiler over ``iters``
+    calls after one warm-up call."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -122,10 +129,38 @@ def device_profile(torch, fn, iters=10):
         for _ in range(iters):
             fn()
         torch.cuda.synchronize()
-    events = [ev for ev in prof.key_averages()
-              if ev.device_type == torch.autograd.DeviceType.CUDA]
-    return (sum(ev.self_device_time_total for ev in events) / 1e3 / iters,
-            sum(ev.count for ev in events) / iters)
+    return [(ev.key, ev.count / iters, ev.self_device_time_total / 1e3 / iters)
+            for ev in prof.key_averages()
+            if ev.device_type == torch.autograd.DeviceType.CUDA]
+
+
+def device_profile(torch, fn, iters=10):
+    """Device time and device activities (kernels, memsets, copies) per
+    call of ``fn`` (:func:`device_events`). Unlike :func:`cuda_ms` the time
+    leaves out the gaps in which the device waits for the host, so it reads
+    a kernel whose wrapper's host work takes longer than the kernel."""
+    events = device_events(torch, fn, iters)
+    return (sum(ev[2] for ev in events), sum(ev[1] for ev in events))
+
+
+def families(events):
+    """{kernel family (:func:`kernel_group`): [device ms, device
+    activities]} of :func:`device_events`' events."""
+    groups = {}
+    for name, cnt, ms in events:
+        g = groups.setdefault(kernel_group(name), [0.0, 0.0])
+        g[0] += ms
+        g[1] += cnt
+    return groups
+
+
+def print_families(groups, what):
+    total = sum(v[0] for v in groups.values())
+    count = sum(v[1] for v in groups.values())
+    print(f"profile of {what}, device time by kernel family (ms, device "
+          f"activities): total {total:.3f} ms, {count:g} activities")
+    for name, (ms, cnt) in sorted(groups.items(), key=lambda kv: -kv[1][0]):
+        print(f"  {name:30s} {ms:9.3f} {cnt:8g}")
 
 
 def device_ms(torch, fn, iters=10):
@@ -354,6 +389,119 @@ def check_kernels(torch, results):
         }
 
 
+SERVE_RP = 1000  # rois a served image hands the decode (n_test_post_nms)
+
+
+def decode_arrays(rng, n, rp=SERVE_RP):
+    """The decode's inputs at the serving shape, numpy: proposal-like rois
+    of the 832x1344 bucket (the last 5% zero-padded and invalid, as
+    proposals are), seeded locs and logits over 81 classes, original size
+    640x1066 at scale 1.25."""
+    rois = np.stack([proposal_like_boxes(rng, rp, *TRAIN_HW)
+                     for _ in range(n)])
+    valid = np.ones((n, rp), bool)
+    valid[:, rp - rp // 20:] = False
+    rois[~valid] = 0.0
+    c = N_CLASS_FG + 1
+    return (rois, valid,
+            (rng.randn(n, rp, 4 * c) * 0.5).astype(np.float32),
+            (rng.randn(n, rp, c) * 2).astype(np.float32),
+            np.tile(np.float32([[640, 1066]]), (n, 1)),
+            np.full(n, 1.25, np.float32))
+
+
+def decode_work(torch, cls_bbox, prob, valid, thresh, k, nms_thresh, d):
+    """What the decode's selection must do on these inputs: bytes (the
+    foreground probabilities and the validity read once, the boxes of the
+    rows it selects, at most k valid rows above the threshold a class,
+    and d outputs an image) and IoU pairs (each kept box against the
+    selected candidates after it, up to where the class's scan stops; 12
+    float operations a pair), from the plain selection's own steps."""
+    from mask_rcnn_tpu_torch.ops import nms
+    from mask_rcnn_tpu_torch.ops.tensors import gather_rows, top_k_stable
+
+    n, rp, c = prob.shape
+    fg_p = prob[:, :, 1:].transpose(1, 2).reshape(-1, rp)
+    fg_b = cls_bbox[:, :, 1:].transpose(1, 2).reshape(-1, rp, 4)
+    ok = valid[:, None, :].expand(n, c - 1, rp).reshape(-1, rp) & (
+        fg_p > thresh)
+    top_p, top_i = top_k_stable(torch.where(ok, fg_p, -torch.inf),
+                                k if 0 < k < rp else rp)
+    sel = torch.isfinite(top_p)
+    plain = (nms.nms_small_plain if sel.shape[1] <= nms.SMALL_MAX_N
+             else nms.nms_blocked_plain)
+    idx, mask = plain(gather_rows(fg_b, top_i), sel, nms_thresh, d)
+    pairs = 0
+    for row_idx, row_mask, cnt in zip(idx.cpu().numpy(), mask.cpu().numpy(),
+                                      sel.sum(1).tolist()):
+        kept = row_idx[row_mask]
+        stop = kept.max() + 1 if len(kept) >= d else cnt
+        pairs += int((stop - kept - 1).clip(min=0).sum())
+    n_bytes = (fg_p.numel() * 4 + valid.numel() + int(sel.sum()) * 16
+               + n * d * (16 + 4 + 4 + 1))
+    return n_bytes, pairs
+
+
+def check_decode_kernel(torch, results):
+    """Phase 2, the decode's selection (K3 on the serving path): the kernel
+    against its plain twin on the card at the serving shape (Rp = 1000, 81
+    classes, seeded logits), batch 1 and 2, score_thresh 0.05 and 0: boxes,
+    labels, scores and valid bit for bit; then the kernels of one whole
+    ``decode`` call from the profiler, which must hold no sort."""
+    from mask_rcnn_tpu_torch.models import mask_rcnn
+    from mask_rcnn_tpu_torch.ops import nms
+
+    rng = np.random.RandomState(SEED + 3)
+    cfg = mask_rcnn.MaskRCNNConfig(n_fg_class=N_CLASS_FG)
+    entry = {"name": "decode_select", "route": "cuda",
+             "source": "mask_rcnn_tpu_torch/csrc/nms.cu",
+             "replaces": "mask_rcnn_tpu/models/mask_rcnn.py:170",
+             "max_abs_err": 0.0}
+    for n in (1, 2):
+        t = [torch.from_numpy(a).cuda() for a in decode_arrays(rng, n)]
+        cls_bbox, prob = mask_rcnn.decode_boxes(cfg, t[0], *t[2:])
+        for thresh in (0.05, 0.0):
+            args = (cls_bbox, prob, t[1], thresh, cfg.nms_topk_per_class,
+                    cfg.nms_thresh, cfg.detections_per_im)
+            got = nms.decode_select(*args)
+            want = nms.decode_select_plain(*args)
+            torch.cuda.synchronize()
+            n_diff = sum((g != w).sum().item() for g, w in zip(got, want))
+            ms = cuda_ms(torch, lambda: nms.decode_select(*args))
+            dev_ms, acts = device_profile(torch,
+                                          lambda: nms.decode_select(*args))
+            plain_ms = cuda_ms(torch, lambda: nms.decode_select_plain(*args),
+                               warmup=1, iters=3)
+            n_bytes, pairs = decode_work(torch, *args)
+            b = bound(n_bytes, 12 * pairs)
+            print(f"K3 decode_select N={n} Rp={SERVE_RP} 81 classes "
+                  f"score_thresh={thresh}: identical={n_diff == 0} "
+                  f"(detections {want[3].sum(1).tolist()}), kernel "
+                  f"{ms:.4f} ms (device {dev_ms:.4f}, {acts:g} activities), "
+                  f"plain {plain_ms:.4f} ms, bound {b['bound_ms']:.5f} ms "
+                  f"({b['bound_by']}: {n_bytes} bytes, {pairs} IoU pairs)")
+            if n_diff:
+                raise AssertionError(f"decode_select differs from its plain "
+                                     f"twin at {n_diff} values (N={n}, "
+                                     f"score_thresh={thresh})")
+            if n == 1 and thresh == cfg.score_thresh:  # serving's default
+                entry.update(ms=ms, device_ms=dev_ms, plain_ms=plain_ms, **b)
+    results["decode_select"] = entry
+
+    # One whole decode (prologue + selection) at batch 1, from the profiler.
+    before = nms.decode_select.launches
+    events = device_events(torch, lambda: mask_rcnn.decode(
+        cfg, t[0][:1], t[1][:1], *(x[:1] for x in t[2:])), iters=1)
+    assert nms.decode_select.launches == before + 2  # warm-up + traced
+    print("kernels of one decode call (device activities, ms):")
+    for name, cnt, ms in events:
+        print(f"  {cnt:4g} {ms:8.4f}  {name[:100]}")
+    sorts = [e[0] for e in events
+             if "sort" in e[0].lower() or "radix" in e[0].lower()]
+    if sorts:
+        raise AssertionError(f"a decode call ran sort kernels: {sorts}")
+
+
 def check_small_reference(torch, pooling="align"):
     """Phase 3: the predict step on the GPU (kernels) against the plain path
     on the CPU, float32, at a small input."""
@@ -460,6 +608,9 @@ def drive_main_path(torch, kernels, pooling="align"):
           f"832x1344 bucket, bf16): "
           f"{ms_img:.3f} ms/img end to end (host clock, synchronised), "
           f"{step_ms:.3f} ms/img prepare+predict_step (CUDA events)")
+    print_families(families(device_events(torch, lambda: model.predict(one),
+                                          iters=2)),
+                   f"batch-1 predict, pooling={pooling} (per image)")
     return counts, ms_img, step_ms
 
 
@@ -881,6 +1032,19 @@ def check_flat_kernels(torch, results):
 SERVE_ROIS = (1000, 100)  # the serving head passes' rois at batch 1
 
 
+def pool_row_reads(rois, p, scale=1 / 16, hw=(52, 84)):
+    """Feature positions that the redesigned K12 reads for these flat rois:
+    each (roi, bin row) reads the union of its bins' columns over the row's
+    rows once."""
+    from mask_rcnn_tpu_torch.ops import roi_align as ra
+
+    r = rois.float()
+    ys, ye = ra._pool_bounds(r[:, 0], r[:, 2], hw[0], p, scale)
+    xs, xe = ra._pool_bounds(r[:, 1], r[:, 3], hw[1], p, scale)
+    cols = (xe[:, -1] - xs[:, 0]).clamp(min=0)
+    return float(((ye - ys).clamp(min=0) * cols[:, None]).sum())
+
+
 def pool_reads(rois, p, scale=1 / 16, hw=(52, 84)):
     """Feature positions that max RoI pooling reads for these flat rois:
     the sum of its bins' areas (chainer's quantized bins)."""
@@ -1004,6 +1168,16 @@ def check_pool_kernels(torch, results):
         ms = cuda_ms(torch, fn)
         plain_ms = cuda_ms(torch, plain, warmup=1, iters=2)
         print(f"{label}: kernel {ms:.4f} ms, plain f32 {plain_ms:.4f} ms")
+        if name == "roi_pool_backward":
+            # logical bytes, whether from L1, L2 or memory: each (roi, bin
+            # row) reads its rows x columns once; at most one float32
+            # atomic per position read (one per tied row of a column)
+            reads = pool_row_reads(rois, 14) * 1024
+            print(f"K12 logical bytes: {reads * 2 / 1e6:.1f} MB of feature "
+                  f"reads (the earlier form read each bin twice and its "
+                  f"tied columns once more: over "
+                  f"{2 * 2 * 1024 * pool_reads(rois, 14) / 1e6:.1f} MB), "
+                  f"at most {reads * 4 / 1e6:.1f} MB of atomics")
         results[name] = entry(name, line)
         results[name].update(max_abs_err=err, ms=ms, plain_ms=plain_ms,
                              **bound(nbytes(*io, got), flops))
@@ -1550,6 +1724,8 @@ def kernel_group(name):
         ("K11 crop_resize bwd", ("crop_resize_bwd",)),
         ("K6 roi_pool fwd", ("roi_pool_fwd",)),
         ("K12 roi_pool bwd", ("roi_pool_bwd",)),
+        ("K3 decode select", ("decode_select",)),
+        ("K3 nms_small", ("nms_small", "nms_tiled_kernel<256>")),
         ("K2 nms", ("nms_tiled",)),
         ("K9a/K9b target creators", ("anchor_targets", "proposal_targets")),
         ("conv/matmul (cuDNN, cuBLAS)", ("conv", "gemm", "xmma", "cutlass",
@@ -1568,31 +1744,16 @@ def kernel_group(name):
 
 def profile_train(torch, step, state, batch):
     """Device time of two train steps by kernel family (profiler)."""
-    from torch.profiler import ProfilerActivity, profile
+    box = [state]
 
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
-                 acc_events=True) as prof:
-        for _ in range(2):
-            state, _ = step(state, batch, SEED)
-        torch.cuda.synchronize()
-    groups, names = {}, []
-    for ev in prof.key_averages():
-        if ev.device_type != torch.autograd.DeviceType.CUDA:
-            continue
-        ms = ev.self_device_time_total / 1e3 / 2
-        names.append((ms, ev.count // 2, ev.key))
-        g = groups.setdefault(kernel_group(ev.key), [0.0, 0])
-        g[0] += ms
-        g[1] += ev.count // 2
-    total = sum(v[0] for v in groups.values())
-    print(f"profile of 2 train steps, device time per step by kernel "
-          f"family (ms, launches): total {total:.3f}")
-    for name, (ms, cnt) in sorted(groups.items(), key=lambda kv: -kv[1][0]):
-        print(f"  {name:30s} {ms:9.3f} {cnt:6d}")
+    def run():
+        box[0], _ = step(box[0], batch, SEED)
+
+    events = device_events(torch, run, iters=2)
+    print_families(families(events), "2 train steps (per step)")
     print("top kernels (ms per step, launches, name):")
-    for ms, cnt, name in sorted(names, reverse=True)[:12]:
-        print(f"  {ms:8.3f} {cnt:5d}  {name[:110]}")
+    for name, cnt, ms in sorted(events, key=lambda e: -e[2])[:12]:
+        print(f"  {ms:8.3f} {cnt:5g}  {name[:110]}")
 
 
 def check_outputs(imgs, bboxes, masks, labels, scores):
@@ -1615,11 +1776,12 @@ def check_outputs(imgs, bboxes, masks, labels, scores):
 AB_CASES = ("k1_bf16_1000", "k1_bf16_100", "k1_f32_1000", "k4_bf16_2000",
             "k2_6000_1000", "k2_2x12000_2000", "k7_bf16_2x512",
             "k13_bf16_1300_700", "k10_bf16_b1", "k10_bf16_b2", "k10_f32_b1",
-            "targets_b2", "align_step_b2")
+            "targets_b2", "decode_b1", "decode_b1_t0", "k12_bf16_2x512",
+            "predict_b1", "align_step_b2")
 # Cases whose kernels sum with float32 atomics: the two checkouts' outputs
 # differ in their last bits from run to run, so the A/B prints the largest
 # difference instead of bit-identity.
-AB_ATOMIC = ("k7_bf16_2x512", "k13_bf16_1300_700")
+AB_ATOMIC = ("k7_bf16_2x512", "k13_bf16_1300_700", "k12_bf16_2x512")
 
 
 def ab_inputs(torch, path):
@@ -1634,7 +1796,11 @@ def ab_inputs(torch, path):
     832x1344 with 8 gts and packed masks an image, the 65520 anchors of its
     52x84 grid, 2000 proposal-like boxes an image (200 of them jittered
     around the gts) and the creators' sampling priorities (the target
-    creators; the batch also feeds the align train step)."""
+    creators; the batch also feeds the align train step); the decode's
+    inputs at the serving shape (:func:`decode_arrays`, batch 1; its
+    sizes and scales also feed the predict step on the first image); and
+    relu'd (2, 52, 84, 1024) features with 2 x 512 flat rois (K12, with a
+    (1024, 14, 14, 1024) gradient drawn on the card)."""
     rng = np.random.RandomState(SEED)
     fh, fw = TRAIN_HW[0] // 16, TRAIN_HW[1] // 16
     t = torch.from_numpy
@@ -1676,6 +1842,15 @@ def ab_inputs(torch, path):
     boxes[:, :200] = np.clip(near, 0, [*TRAIN_HW, *TRAIN_HW])
     x["t_rois"] = t(boxes.astype(np.float32))
     x["t_roi_valid"] = t(rng.rand(2, 2000) > 0.02)
+    for k, a in zip(("roi", "roi_valid", "cls_loc", "score", "sizes",
+                     "scales"), decode_arrays(rng, 1)):
+        x[f"dec_{k}"] = t(a)
+    x["pool_feats"] = t(np.maximum(rng.randn(2, fh, fw, 1024), 0)
+                        .astype(np.float32))
+    flat = np.concatenate([proposal_like_boxes(rng, TRAIN_ROIS, *TRAIN_HW)
+                           for _ in range(2)])
+    x["pool_rois"] = t(flat)
+    x["pool_idx"] = t(np.repeat(np.arange(2, dtype=np.int32), TRAIN_ROIS))
     s, p = len(x["anchors"]), 2000 + 8
     for k, shape in (("a_pos", (2, s)), ("a_neg", (2, s)), ("p_pos", (2, p)),
                      ("p_neg", (2, p))):
@@ -1743,7 +1918,7 @@ def ab_worker(tree, inputs, out):
     sys.path.insert(0, os.path.abspath(tree))
     import torch
 
-    from mask_rcnn_tpu_torch.models import resnet
+    from mask_rcnn_tpu_torch.models import mask_rcnn, resnet
     from mask_rcnn_tpu_torch.ops import _kernels, nms, roi_align
 
     assert os.path.dirname(_kernels.__file__).startswith(
@@ -1764,6 +1939,17 @@ def ab_worker(tree, inputs, out):
                      device="cuda").bfloat16()
     g13 = torch.randn((2000, 7, 7, 1024), generator=gen,
                       device="cuda").bfloat16()
+    g12 = torch.randn((2 * TRAIN_ROIS, 14, 14, 1024), generator=gen,
+                      device="cuda").bfloat16()
+    pool_feats = x["pool_feats"].bfloat16()
+    dec_cfg = mask_rcnn.MaskRCNNConfig(
+        n_fg_class=N_CLASS_FG, min_size=800, max_size=1333,
+        anchor_scales=(2, 4, 8, 16, 32), compute_dtype="bfloat16")
+    dec_cfg_t0 = dataclasses.replace(dec_cfg, score_thresh=0.0)
+    dec = [x[f"dec_{k}"] for k in ("roi", "roi_valid", "cls_loc", "score",
+                                   "sizes", "scales")]
+    pred_params = mask_rcnn.init_params(
+        dec_cfg, torch.Generator().manual_seed(SEED), torch.device("cuda"))
     fhw = (TRAIN_HW[0] // 16, TRAIN_HW[1] // 16)
     args = (7, 1 / 16, 0, 2)
     calls = {
@@ -1790,6 +1976,13 @@ def ab_worker(tree, inputs, out):
         "k10_f32_b1": lambda: resnet.stem_forward(
             stem[torch.float32], img[torch.float32][:1]),
         "targets_b2": lambda: ab_targets(x),
+        "decode_b1": lambda: mask_rcnn.decode(dec_cfg, *dec),
+        "decode_b1_t0": lambda: mask_rcnn.decode(dec_cfg_t0, *dec),
+        "k12_bf16_2x512": lambda: roi_align.roi_pool_backward(
+            g12, pool_feats, x["pool_rois"], x["pool_idx"], 1 / 16),
+        "predict_b1": lambda: tuple(mask_rcnn.predict_step(
+            pred_params, dec_cfg, img[torch.float32][:1],
+            x["dec_sizes"], x["dec_scales"]).values()),
     }
     outputs, ms, dev_ms, launches = {}, {}, {}, {}
     with torch.no_grad():
@@ -1799,25 +1992,32 @@ def ab_worker(tree, inputs, out):
             outputs[name] = tuple(g.cpu() for g in got)
             ms[name] = cuda_ms(torch, calls[name])
             dev_ms[name], launches[name] = device_profile(torch, calls[name])
+        serve_families = families(device_events(torch, calls["predict_b1"],
+                                                iters=3))
     name = AB_CASES[-1]
     outputs[name] = step_first
     ms[name] = cuda_ms(torch, step_run, warmup=2, iters=5)
     dev_ms[name], launches[name] = device_profile(torch, step_run, iters=2)
     torch.save({"outputs": outputs, "ms": ms, "device_ms": dev_ms,
-                "launches": launches}, out)
+                "launches": launches, "serve_families": serve_families}, out)
 
 
 def run_against(torch, other) -> int:
     """K1, K2, K4, K7, K13, K10, the two target creators (``targets_b2``:
-    ``models/targets.py::anchor_targets`` + ``proposal_targets``) and the
-    align train step (``align_step_b2``; its output is the first step's
-    losses) of this checkout against ``other``'s: the same inputs
+    ``models/targets.py::anchor_targets`` + ``proposal_targets``),
+    ``models/mask_rcnn.py::decode`` at the serving shape (``decode_b1`` at
+    score_thresh 0.05, ``decode_b1_t0`` at 0), K12 (``k12_bf16_2x512``),
+    the align ``predict_step`` at batch 1, 832x1344 bf16 (``predict_b1``,
+    with its device time by kernel family) and the align train step
+    (``align_step_b2``; its output is the first step's losses) of this
+    checkout against ``other``'s: the same inputs
     (:func:`ab_inputs`) through each checkout's package in its own
     process, in the order other, this, this, other. Prints each run's
     times (CUDA events and the profiler's device time) and device
     activities per call, whether this checkout's outputs equal the other's
     bit for bit (where not, how many values of the first output differ and
-    by how much; for the atomic kernels K7 and K13 the largest difference,
+    by how much; for the atomic kernels K7, K13 and K12 the largest
+    difference,
     against the largest value), and one JSON line."""
     import tempfile
 
@@ -1838,11 +2038,15 @@ def run_against(torch, other) -> int:
             outputs.setdefault(side, res["outputs"])
             runs.append({"tree": side, "ms": res["ms"],
                          "device_ms": res["device_ms"],
-                         "launches": res["launches"]})
+                         "launches": res["launches"],
+                         "serve_families": res["serve_families"]})
             print(f"run {i} ({side}, {trees[side]}): " + ", ".join(
                 f"{k} {v:.4f} ms (device {res['device_ms'][k]:.4f}, "
                 f"{res['launches'][k]:g} launches)"
                 for k, v in res["ms"].items()))
+            print_families(res["serve_families"],
+                           f"run {i} ({side}): align predict_step at batch 1, "
+                           "832x1344 bf16")
     identical, differ = {}, {}
     for name in AB_CASES:
         pairs = list(zip(outputs["other"][name], outputs["this"][name]))
@@ -1870,8 +2074,9 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--against", metavar="OTHER_CHECKOUT",
                     help="time K1, K2, K4, K7, K13, K10, the target "
-                    "creators and the align train step against another "
-                    "checkout's instead of the smoke")
+                    "creators, decode, K12, the align predict step and the "
+                    "align train step against another checkout's instead "
+                    "of the smoke")
     ap.add_argument("--ab-worker", nargs=3, help=argparse.SUPPRESS)
     a = ap.parse_args(argv)
     if a.ab_worker:
@@ -1905,6 +2110,7 @@ def main(argv=None) -> int:
 
     results = {}
     check_kernels(torch, results)
+    check_decode_kernel(torch, results)
     check_train_kernels(torch, results)
     check_pool_kernels(torch, results)
     check_stem_kernel(torch, results)
@@ -1934,7 +2140,7 @@ def main(argv=None) -> int:
     for pooling in POOLERS:
         counts, ms_img, step_ms = drive_main_path(
             torch, (resnet.stem_forward, pool_fwd[pooling], nms.nms_blocked,
-                    nms.nms_small), pooling)
+                    nms.decode_select), pooling)
         count(counts, pooling == "align")
         serving[pooling] = {"predict_ms_per_img_b1": ms_img,
                             "predict_submit_ms_per_img_b1": step_ms}
@@ -1959,20 +2165,21 @@ def main(argv=None) -> int:
     count(counts, False)
     counts, loop = drive_train_loop(
         torch, (resnet.stem_forward, roi_align.roi_align_grouped,
-                nms.nms_blocked, nms.nms_small,
+                nms.nms_blocked, nms.decode_select,
                 roi_align.roi_align_grouped_backward,
                 targets.anchor_targets, targets.proposal_targets))
     count(counts, True)
     loop["launches"] = counts
     for name, entry in results.items():
-        entry["launches"] = launches[name]
+        # nms_small serves no main path since decode_select took the decode
+        entry["launches"] = launches.get(name, 0)
         entry["launches_main"] = launches_main.get(name, 0)
 
     print(json.dumps({"serving": serving, "training": training,
                       "flat_head_ms_fwd_bwd": flat_ms, "train_loop": loop,
                       "card": smi}))
     order = ("roi_align_grouped", "nms_blocked", "nms_small",
-             "roi_align_grouped_backward", "anchor_targets",
+             "decode_select", "roi_align_grouped_backward", "anchor_targets",
              "proposal_targets", "crop_and_resize",
              "crop_and_resize_backward", "roi_pool",
              "roi_pool_backward", "stem_forward", "roi_align",

@@ -11,11 +11,13 @@
 // The JAX package wrote K5 as two einsums over one-hot interpolation
 // matrices and K6 as static loops of gathers and jnp.maximum, so that the
 // TPU's matrix and vector units do the work; on Hopper both are gathers.
-// Every kernel runs one block per (roi, output row) and channel tile, one
+// K5, K11 and K6 run one block per (roi, output row) and channel tile, one
 // thread per channel, so that a warp reads 32 neighbouring channels of one
 // NHWC tap; each thread walks the row's P cells. A block per output cell
 // would mean ~0.8 M blocks of a few loads each at 1000 rois, bound by block
-// scheduling (PERF.md).
+// scheduling (PERF.md). K12 (redesigned) keeps the block per (roi, output
+// row) but gives each thread 16 bytes of channels and reads each feature
+// of the row's bins once (see roi_pool_bwd_kernel).
 //
 // What bounds them on an H100: memory traffic. At the slice's shapes the
 // features ((1 or 2, 52, 84, 1024) bf16, 9-18 MB) stay in the 50 MB L2;
@@ -46,10 +48,17 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
+#include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
 __device__ __forceinline__ float load_f(const float* p) { return __ldg(p); }
+__device__ __forceinline__ float to_float(float v) { return v; }
+__device__ __forceinline__ float to_float(__nv_bfloat16 v) {
+  return __bfloat162float(v);
+}
 __device__ __forceinline__ float load_f(const __nv_bfloat16* p) {
   return __bfloat162float(*p);
 }
@@ -213,94 +222,280 @@ __global__ void roi_pool_fwd_kernel(const T* __restrict__ feats,
   }
 }
 
-// Weight of the k-th (1-based, in loop order) of m tied positions of one
-// chain of pairwise maxima that split ties in half.
-__device__ __forceinline__ float tie_weight(int k, int m) {
-  return ldexpf(1.0f, k == 1 ? 1 - m : k - m - 1);
+// 2^e as a float, e in [-126, 127], from its exponent bits.
+__device__ __forceinline__ float pow2f(int e) {
+  return __int_as_float((127 + e) << 23);
 }
 
-// Max over rows [ys, ye) of one column, and how many rows reach it.
-template <typename T>
-__device__ __forceinline__ float column_max(const T* col, size_t row_stride,
-                                            int ys, int ye, int* count) {
-  float m = -INFINITY;
-  int cnt = 0;
-  for (int y = ys; y < ye; ++y) {
-    const float v = load_f(col + (size_t)y * row_stride);
-    if (v > m) {
-      m = v;
-      cnt = 1;
-    } else if (v == m) {
-      ++cnt;
+// The tie weights of one chain of pairwise maxima that split ties in half,
+// in loop order: m tied positions get 2^(1-m), 2^(1-m), 2^(2-m), ..., 1/2
+// (1 when m = 1). next() returns the next position's weight.
+struct TieWeights {
+  float w = 1.0f;
+  int k = 1;
+  TieWeights() = default;
+  __device__ explicit TieWeights(int m) : w(pow2f(1 - m)) {}
+  __device__ float next() {
+    const float out = w;
+    if (k++ >= 2) w *= 2.0f;
+    return out;
+  }
+};
+
+// V channels of T as one load: 16 bytes (8 bf16 or 4 float32) when V > 1,
+// else one scalar; unpack() turns them into floats.
+template <typename T, int V>
+struct Vec {
+  using Raw = typename std::conditional<
+      V == 1, T, typename std::conditional<sizeof(T) == 4, float4,
+                                           uint4>::type>::type;
+  static_assert(V == 1 || V * sizeof(T) == 16, "16-byte vectors");
+
+  __device__ static __forceinline__ Raw load(const T* p) {
+    if constexpr (V == 1) {
+      return *p;
+    } else {
+      return __ldg(reinterpret_cast<const Raw*>(p));
     }
   }
-  *count = cnt;
-  return m;
+
+  __device__ static __forceinline__ void unpack(const Raw& r,
+                                                float (&v)[V]) {
+    if constexpr (V == 1 && sizeof(T) == 4) {
+      v[0] = r;
+    } else if constexpr (V == 1) {
+      v[0] = __bfloat162float(r);
+    } else if constexpr (sizeof(T) == 4) {
+      v[0] = r.x;
+      v[1] = r.y;
+      v[2] = r.z;
+      v[3] = r.w;
+    } else {
+      const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&r);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const float2 f = __bfloat1622float2(h[i]);
+        v[2 * i] = f.x;
+        v[2 * i + 1] = f.y;
+      }
+    }
+  }
+};
+
+template <int V, typename T>
+__device__ __forceinline__ void load_vec(const T* p, float (&v)[V]) {
+  Vec<T, V>::unpack(Vec<T, V>::load(p), v);
 }
 
-// One bin's share of K12: g times the tie weight of each position that
-// reaches the bin's max, rows [ys, ye) and columns [xs, xe).
-template <typename T>
-__device__ __forceinline__ void pool_bin_grad(const T* f, float* df,
-                                              size_t row_stride, int C,
-                                              int ys, int ye, int xs, int xe,
-                                              float g) {
-  // the bin's max over the column maxima, and how many columns reach it
-  float m = -INFINITY;
-  int mc = 0;
-  for (int x = xs; x < xe; ++x) {
-    int cnt;
-    const float cm = column_max(f + (size_t)x * C, row_stride, ys, ye, &cnt);
-    if (cm > m) {
-      m = cm;
-      mc = 1;
-    } else if (cm == m) {
-      ++mc;
-    }
-  }
-  if (!isfinite(m)) return;  // empty bin: the output is 0, no gradient
-
-  int kc = 0;
-  for (int x = xs; x < xe; ++x) {
-    const T* col = f + (size_t)x * C;
-    int mr;
-    if (column_max(col, row_stride, ys, ye, &mr) != m) continue;
-    const float gc = g * tie_weight(++kc, mc);
-    int kr = 0;
-    for (int y = ys; y < ye; ++y) {
-      if (load_f(col + (size_t)y * row_stride) == m) {
-        atomicAdd(df + (size_t)y * row_stride + (size_t)x * C,
-                  gc * tie_weight(++kr, mr));
+// V float32 sums into the gradient buffer: float4 atomics (Hopper's vector
+// atomic) when V > 1, sums of 0 not issued.
+template <int V>
+__device__ __forceinline__ void scatter_vec(float* p, const float (&a)[V]) {
+  if constexpr (V == 1) {
+    if (a[0] != 0.0f) atomicAdd(p, a[0]);
+  } else {
+#pragma unroll
+    for (int q = 0; q < V; q += 4) {
+      if (a[q] != 0.0f || a[q + 1] != 0.0f || a[q + 2] != 0.0f ||
+          a[q + 3] != 0.0f) {
+        atomicAdd(reinterpret_cast<float4*>(p + q),
+                  make_float4(a[q], a[q + 1], a[q + 2], a[q + 3]));
       }
     }
   }
 }
 
-template <typename T>
-__global__ void roi_pool_bwd_kernel(const T* __restrict__ grad_out,
-                                    const T* __restrict__ feats,
-                                    const float* __restrict__ rois,
-                                    const int* __restrict__ idx,
-                                    float* __restrict__ grad_feats, int N,
-                                    int H, int W, int C, int P, float scale) {
-  const Row k = this_row(P);
-  if (k.c >= C) return;
-  const int n = idx[k.roi];
+// K12. One block per (roi, py) row of bins and channel tile; a thread owns
+// V adjacent channels (16 bytes of features). All bins of the row share the
+// rows [ys, ye) (at most ceil(H/P) + 1 <= 32 of them), and a column x of
+// those rows has one max over them and one set of tied rows, whichever bin
+// reads it. So the thread walks the row's bins px in order and computes
+// each column once, reading its features once: the column max and the
+// bitmask of rows that reach it go to a ring of `ring` = ceil(W/P) + 1
+// column slots in shared memory (bins are monotone in px and at most that
+// wide, so a bin's columns are all in the ring). From those, a bin's max,
+// its tied columns and their weights need no feature; each tied column
+// adds g * its column weight to the column's coefficient G. When no later
+// bin can read a column (x < the next bin's start, or the row ends) it is
+// flushed: G times each tied row's weight, one vector atomic per (row,
+// column), so the column two bins share gets one atomic per row, not two.
+// A bin whose gradient is zero is skipped before it reads a feature, so a
+// thread whose gradient row is all zero (every odd py under res5's
+// stride-2 1x1 convs, which leave 3/4 of the cells without gradient) reads
+// none; each bin's gradient is loaded one bin ahead. A column's rows are loaded kRowBatch at a time
+// before any compare, so that a thread keeps that many 16-byte loads in
+// flight (a block holds few threads: the ring's shared memory bounds it).
+// Shared memory: three arrays [ring][V][threads] (G float32, the column
+// max in the feature type, the row mask in 8 bits when bins have at most 8
+// rows), thread-private, so no barrier.
+constexpr int kRowBatch = 8;
+
+template <typename T, int V, typename M>
+__global__ void __launch_bounds__(64)
+roi_pool_bwd_kernel(const T* __restrict__ grad_out,
+                    const T* __restrict__ feats,
+                    const float* __restrict__ rois,
+                    const int* __restrict__ idx,
+                    float* __restrict__ grad_feats, int N, int H, int W,
+                    int C, int P, float scale, int ring) {
+  extern __shared__ float pool_smem[];
+  const int threads = blockDim.x, tid = threadIdx.x;
+  const int roi = blockIdx.x / P, py = blockIdx.x % P;
+  const int c0 = (blockIdx.y * threads + tid) * V;
+  if (c0 >= C) return;
+  const int n = idx[roi];
   if (n < 0 || n >= N) return;
-  const float* box = rois + (size_t)k.roi * 4;
-  const T* go = grad_out + (size_t)blockIdx.x * P * C + k.c;
+  const float* box = rois + (size_t)roi * 4;
   int ys, ye;
-  pool_bin(box[0], box[2], scale, k.py, P, H, &ys, &ye);
+  pool_bin(box[0], box[2], scale, py, P, H, &ys, &ye);
+  if (ys >= ye) return;  // empty bins: the output is 0, no gradient
+
+  const T* go = grad_out + (size_t)blockIdx.x * P * C + c0;
   const size_t row_stride = (size_t)W * C;
-  const T* f = feats + (size_t)n * H * W * C + k.c;
-  float* df = grad_feats + (size_t)n * H * W * C + k.c;
+  const T* f = feats + (size_t)n * H * W * C + c0;
+  float* df = grad_feats + (size_t)n * H * W * C + c0;
+  // the column max is a feature value: exact in T
+  float* s_g = pool_smem;
+  T* s_max = reinterpret_cast<T*>(s_g + ring * V * threads);
+  M* s_rows = reinterpret_cast<M*>(s_max + ring * V * threads);
+  // column x's entry for channel j: slot(x) + j * threads
+  const auto slot = [&](int x) { return (x % ring) * V * threads + tid; };
+
+  // Columns [lo, hi) are in the ring, waiting for their atomics: G times
+  // each tied row's weight, rows in order, one vector atomic per row that
+  // any of the V channels reaches.
+  const auto flush = [&](int x0, int x1) {
+    for (int x = x0; x < x1; ++x) {
+      const int e = slot(x);
+      float gx[V];
+      uint32_t rows[V], todo = 0;
+#pragma unroll
+      for (int j = 0; j < V; ++j) {
+        gx[j] = s_g[e + j * threads];
+        rows[j] = gx[j] != 0.0f ? s_rows[e + j * threads] : 0u;
+        todo |= rows[j];
+      }
+      if (!todo) continue;
+      TieWeights wr[V] = {};
+#pragma unroll
+      for (int j = 0; j < V; ++j) wr[j] = TieWeights(__popc(rows[j]));
+      while (todo) {
+        const int r = __ffs(todo) - 1;
+        todo &= todo - 1;
+        float a[V];
+#pragma unroll
+        for (int j = 0; j < V; ++j) {
+          a[j] = (rows[j] >> r) & 1u ? gx[j] * wr[j].next() : 0.0f;
+        }
+        scatter_vec<V>(df + (size_t)(ys + r) * row_stride + (size_t)x * C,
+                       a);
+      }
+    }
+  };
+
+  // A zero gradient row reads no feature: every bin is skipped. Each bin's
+  // gradient is loaded one bin ahead.
+  float g_next[V];
+  load_vec<V>(go, g_next);
+  int lo = 0, hi = 0;
   for (int px = 0; px < P; ++px) {
-    const float g = load_f(go + (size_t)px * C);
-    if (g == 0.0f) continue;
+    float g[V];
+    bool live = false;
+#pragma unroll
+    for (int j = 0; j < V; ++j) {
+      g[j] = g_next[j];
+      live |= g[j] != 0.0f;
+    }
+    if (px + 1 < P) load_vec<V>(go + (size_t)(px + 1) * C, g_next);
+    if (!live) continue;
     int xs, xe;
     pool_bin(box[1], box[3], scale, px, P, W, &xs, &xe);
-    pool_bin_grad(f, df, row_stride, C, ys, ye, xs, xe, g);
+    if (xs >= xe) continue;
+    flush(lo, min(hi, xs));
+    lo = xs;
+    if (hi < xs) hi = xs;
+    for (int x = hi; x < xe; ++x) {  // the bin's new columns, read once
+      float cm[V];
+      uint32_t rows[V];
+#pragma unroll
+      for (int j = 0; j < V; ++j) {
+        cm[j] = -INFINITY;
+        rows[j] = 0;
+      }
+      // kRowBatch rows' loads in flight at once, then their compares
+      for (int y0 = ys; y0 < ye; y0 += kRowBatch) {
+        typename Vec<T, V>::Raw raw[kRowBatch];
+#pragma unroll
+        for (int u = 0; u < kRowBatch; ++u) {
+          if (y0 + u < ye) {
+            raw[u] = Vec<T, V>::load(f + (size_t)(y0 + u) * row_stride +
+                                     (size_t)x * C);
+          }
+        }
+#pragma unroll
+        for (int u = 0; u < kRowBatch; ++u) {
+          if (y0 + u >= ye) break;
+          float v[V];
+          Vec<T, V>::unpack(raw[u], v);
+          const uint32_t bit = 1u << (y0 + u - ys);
+#pragma unroll
+          for (int j = 0; j < V; ++j) {
+            if (v[j] > cm[j]) {
+              cm[j] = v[j];
+              rows[j] = bit;
+            } else if (v[j] == cm[j]) {
+              rows[j] |= bit;
+            }
+          }
+        }
+      }
+      const int e = slot(x);
+#pragma unroll
+      for (int j = 0; j < V; ++j) {
+        store_f(s_max + e + j * threads, cm[j]);
+        s_rows[e + j * threads] = (M)rows[j];
+        s_g[e + j * threads] = 0.0f;
+      }
+    }
+    hi = xe;
+
+    // The bin's max over its column maxima and how many columns reach it,
+    // then each tied column's weight, in column order.
+    float m[V];
+    int mc[V];
+#pragma unroll
+    for (int j = 0; j < V; ++j) {
+      m[j] = -INFINITY;
+      mc[j] = 0;
+    }
+    for (int x = xs; x < xe; ++x) {
+      const int e = slot(x);
+#pragma unroll
+      for (int j = 0; j < V; ++j) {
+        const float v = to_float(s_max[e + j * threads]);
+        if (v > m[j]) {
+          m[j] = v;
+          mc[j] = 1;
+        } else if (v == m[j]) {
+          ++mc[j];
+        }
+      }
+    }
+    TieWeights wc[V] = {};
+#pragma unroll
+    for (int j = 0; j < V; ++j) wc[j] = TieWeights(mc[j]);
+    for (int x = xs; x < xe; ++x) {
+      const int e = slot(x);
+#pragma unroll
+      for (int j = 0; j < V; ++j) {
+        // a non-finite max is an output of 0: no gradient
+        if (isfinite(m[j]) && to_float(s_max[e + j * threads]) == m[j]) {
+          s_g[e + j * threads] += g[j] * wc[j].next();
+        }
+      }
+    }
   }
+  flush(lo, hi);
 }
 
 int threads_for(int C) { return C >= 256 ? 256 : ((C + 31) / 32) * 32; }
@@ -354,11 +549,75 @@ extern "C" int mrcnn_roi_pool_fwd(const void* feats, const float* rois,
                  H, W, C, P, scale)
 }
 
+// K12: the vector form (V = 8 bf16 or 4 float32 channels a thread) when C
+// is a multiple of V and grad_out, feats and grad_feats start on 16-byte
+// boundaries, else one channel a thread; 8-bit row masks when a bin has at
+// most 8 rows (ceil(H / P) + 1 <= 8), else 32-bit ones (at most 32 rows).
+template <typename T, int V, typename M>
+int launch_roi_pool_bwd(const void* grad_out, const void* feats,
+                        const float* rois, const int* idx, float* grad_feats,
+                        int N, int R, int H, int W, int C, int P, float scale,
+                        cudaStream_t s) {
+  const int groups = C / V;
+  int threads = groups >= 64 ? 64 : ((groups + 31) / 32) * 32;
+  const int ring = (W + P - 1) / P + 1;
+  const size_t per_thread = (size_t)ring * V * (4 + sizeof(T) + sizeof(M));
+  if (per_thread * threads > 200 * 1024 && threads > 32) threads = 32;
+  const size_t smem = per_thread * threads;
+  if (smem > 200 * 1024) return (int)cudaErrorInvalidValue;
+  if (smem > 48 * 1024) {
+    const int err = (int)cudaFuncSetAttribute(
+        (const void*)roi_pool_bwd_kernel<T, V, M>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err) return err;
+  }
+  const dim3 grid(R * P, (groups + threads - 1) / threads);
+  roi_pool_bwd_kernel<T, V, M><<<grid, threads, smem, s>>>(
+      (const T*)grad_out, (const T*)feats, rois, idx, grad_feats, N, H, W, C,
+      P, scale, ring);
+  return (int)cudaGetLastError();
+}
+
+template <typename T, int V>
+int launch_roi_pool_bwd_rows(int rows, const void* grad_out,
+                             const void* feats, const float* rois,
+                             const int* idx, float* grad_feats, int N, int R,
+                             int H, int W, int C, int P, float scale,
+                             cudaStream_t s) {
+  if (rows <= 8) {
+    return launch_roi_pool_bwd<T, V, uint8_t>(grad_out, feats, rois, idx,
+                                              grad_feats, N, R, H, W, C, P,
+                                              scale, s);
+  }
+  return launch_roi_pool_bwd<T, V, uint32_t>(grad_out, feats, rois, idx,
+                                             grad_feats, N, R, H, W, C, P,
+                                             scale, s);
+}
+
 extern "C" int mrcnn_roi_pool_bwd(const void* grad_out, const void* feats,
                                   const float* rois, const int* idx,
                                   float* grad_feats, int dtype, int N, int R,
                                   int H, int W, int C, int P, float scale,
                                   void* stream) {
-  MRCNN_DISPATCH(roi_pool_bwd_kernel, (const T*)grad_out, (const T*)feats,
-                 rois, idx, grad_feats, N, H, W, C, P, scale)
+  if (N * R == 0 || C == 0) return 0;
+  const int rows = (H + P - 1) / P + 1;
+  if (rows > 32) return (int)cudaErrorInvalidValue;
+  const bool aligned = ((uintptr_t)grad_out | (uintptr_t)feats |
+                        (uintptr_t)grad_feats) % 16 == 0;
+  cudaStream_t s = (cudaStream_t)stream;
+  const auto args = [&](auto launch) {
+    return launch(rows, grad_out, feats, rois, idx, grad_feats, N, R, H, W,
+                  C, P, scale, s);
+  };
+  if (dtype == 0) {
+    if (aligned && C % 4 == 0)
+      return args(launch_roi_pool_bwd_rows<float, 4>);
+    return args(launch_roi_pool_bwd_rows<float, 1>);
+  }
+  if (dtype == 1) {
+    if (aligned && C % 8 == 0)
+      return args(launch_roi_pool_bwd_rows<__nv_bfloat16, 8>);
+    return args(launch_roi_pool_bwd_rows<__nv_bfloat16, 1>);
+  }
+  return (int)cudaErrorInvalidValue;
 }

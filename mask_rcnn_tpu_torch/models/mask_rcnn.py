@@ -21,9 +21,9 @@ import torch
 from mask_rcnn_tpu_torch.models import heads, resnet, rpn
 from mask_rcnn_tpu_torch.ops import anchors as anchor_ops
 from mask_rcnn_tpu_torch.ops.boxes import loc2bbox
-from mask_rcnn_tpu_torch.ops.nms import nms_padded
+from mask_rcnn_tpu_torch.ops.nms import decode_select
 from mask_rcnn_tpu_torch.ops.roi_align import POOLING_FUNCS
-from mask_rcnn_tpu_torch.ops.tensors import constant, top_k_stable
+from mask_rcnn_tpu_torch.ops.tensors import constant
 
 
 @dataclasses.dataclass(frozen=True)
@@ -146,27 +146,17 @@ def forward_backbone_rpn(params, cfg, images, train=False):
     return feats, locs, scores, anchors
 
 
-def _gather_rows(x, idx):
-    """x (..., R, K), idx (..., D) -> (..., D, K)."""
-    return torch.gather(x, -2, idx[..., None].expand(*idx.shape, x.shape[-1]))
-
-
-def decode(cfg, roi, roi_valid, cls_loc, score, sizes, scales):
-    """Batched detection decode: de-normalize locs, per-class NMS (kernel
-    K3 over images x classes), zero-area drop, top ``detections_per_im``
-    (the JAX package's ``_decode_single`` over a batch).
-
-    Args: roi (N, Rp, 4), roi_valid (N, Rp), cls_loc (N, Rp, n_class*4),
-    score (N, Rp, n_class), sizes (N, 2), scales (N,).
-
-    Returns (boxes (N, D, 4) original-image coords, labels (N, D) 0-based,
-    -1 pad, scores (N, D), valid (N, D)).
-    """
+def decode_boxes(cfg, roi, cls_loc, score, sizes, scales):
+    """The decode's elementwise prologue: class probabilities (N, Rp,
+    n_class) float32 and every class's box (N, Rp, n_class, 4) float32,
+    de-normalized, applied to the rois in original-image coordinates and
+    clipped to the image. Plain torch on both devices: a kernel's own
+    ``expf`` would move the boxes by ULPs, and the NMS decisions with
+    them."""
     n, rp = roi.shape[:2]
-    n_class, n_fg, d = cfg.n_class, cfg.n_fg_class, cfg.detections_per_im
+    n_class = cfg.n_class
     dev = roi.device
-
-    prob = torch.softmax(score.float(), dim=-1)  # (N, Rp, n_class)
+    prob = torch.softmax(score.float(), dim=-1)
     mean = constant(tuple(cfg.loc_normalize_mean) * n_class, dev)
     std = constant(tuple(cfg.loc_normalize_std) * n_class, dev)
     cls_loc = (cls_loc.float() * std + mean).reshape(n, rp, n_class, 4)
@@ -175,47 +165,26 @@ def decode(cfg, roi, roi_valid, cls_loc, score, sizes, scales):
     # clip to the original image extent
     hi = sizes[:, None, None, :].repeat(1, 1, 1, 2)  # (N, 1, 1, 4): h w h w
     cls_bbox = torch.minimum(torch.clamp(cls_bbox, min=0.0), hi)
+    return cls_bbox.contiguous(), prob
 
-    # classes 1..n_class-1, one problem per (image, class)
-    fg_boxes = cls_bbox[:, :, 1:].transpose(1, 2).reshape(n * n_fg, rp, 4)
-    fg_probs = prob[:, :, 1:].transpose(1, 2).reshape(n * n_fg, rp)
-    valid_l = (roi_valid[:, None, :].expand(n, n_fg, rp).reshape(n * n_fg, rp)
-               & (fg_probs > cfg.score_thresh))
-    k = cfg.nms_topk_per_class
-    if k and k < rp:
-        top_p, top_i = top_k_stable(
-            torch.where(valid_l, fg_probs, -torch.inf), k
-        )
-        top_b = _gather_rows(fg_boxes, top_i)
-        idx, mask = nms_padded(top_b, top_p, cfg.nms_thresh, d,
-                               valid=torch.isfinite(top_p), presorted=True)
-        sel = idx.clamp(min=0).long()
-        b = _gather_rows(top_b, sel)
-        s = torch.where(mask, torch.gather(top_p, 1, sel), 0.0)
-    else:
-        idx, mask = nms_padded(fg_boxes, fg_probs, cfg.nms_thresh, d,
-                               valid=valid_l)
-        sel = idx.clamp(min=0).long()
-        b = _gather_rows(fg_boxes, sel)
-        s = torch.gather(fg_probs, 1, sel)
 
-    b = b.reshape(n, n_fg * d, 4)
-    s = s.reshape(n, n_fg * d)
-    m = mask.reshape(n, n_fg * d)
-    labels = torch.arange(n_fg, dtype=torch.int32, device=dev)
-    labels = labels[:, None].expand(n_fg, d).reshape(-1)
+def decode(cfg, roi, roi_valid, cls_loc, score, sizes, scales):
+    """Batched detection decode (the JAX package's ``_decode_single`` over a
+    batch): :func:`decode_boxes`, then the selection (per-class top-k and
+    NMS, zero-area drop, top ``detections_per_im``), which on the card is
+    one launch of kernel K3 (:func:`~mask_rcnn_tpu_torch.ops.nms.
+    decode_select`).
 
-    # Drop boxes whose rounded (half to even) integer area is zero.
-    bi = torch.round(b)
-    area = (bi[..., 2] - bi[..., 0]) * (bi[..., 3] - bi[..., 1])
-    m = m & (area > 0)
+    Args: roi (N, Rp, 4), roi_valid (N, Rp), cls_loc (N, Rp, n_class*4),
+    score (N, Rp, n_class), sizes (N, 2), scales (N,).
 
-    top_s, top_i = top_k_stable(torch.where(m, s, -torch.inf), d)
-    out_valid = torch.isfinite(top_s)
-    out_boxes = torch.where(out_valid[..., None], _gather_rows(b, top_i), 0.0)
-    out_labels = torch.where(out_valid, labels[top_i], -1)
-    out_scores = torch.where(out_valid, top_s, 0.0)
-    return out_boxes, out_labels, out_scores, out_valid
+    Returns (boxes (N, D, 4) original-image coords, labels (N, D) 0-based,
+    -1 pad, scores (N, D), valid (N, D)).
+    """
+    cls_bbox, prob = decode_boxes(cfg, roi, cls_loc, score, sizes, scales)
+    return decode_select(cls_bbox, prob, roi_valid.contiguous(),
+                         cfg.score_thresh, cfg.nms_topk_per_class,
+                         cfg.nms_thresh, cfg.detections_per_im)
 
 
 def predict_step(params, cfg: MaskRCNNConfig, images, sizes,

@@ -64,6 +64,12 @@ _SIGNATURES = {
     "mrcnn_nms_blocked": (_P, _P, _P, _I, _I, _F, _I, _P, _P, _P),
     "mrcnn_nms_small": (_P, _P, _I, _I, _F, _I, _P, _P, _P),
     "mrcnn_nms_kept_cap": (),
+    # (prob, boxes, roi_valid, N, Rp, C, score_thresh, k, nms_thresh, D,
+    #  s_boxes, s_scores, s_counts, tickets, out_boxes, out_labels,
+    #  out_scores, out_valid, stream)
+    "mrcnn_decode_select": (_P, _P, _P, _I, _I, _I, _F, _I, _F, _I, _P, _P,
+                            _P, _P, _P, _P, _P, _P, _P),
+    "mrcnn_decode_limits": (_P,),  # int[4]
 }
 
 _lock = threading.Lock()

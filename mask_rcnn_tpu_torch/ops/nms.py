@@ -9,21 +9,30 @@ plain torch version (CPU tensors) and a hand-written kernel (CUDA tensors,
 * :func:`nms_small` (K3) for N <= :data:`SMALL_MAX_N` boxes per problem:
   the fixpoint formulation of ``nms_fixpoint_mask`` plus compaction;
 * :func:`nms_blocked` (K2) for larger N: the blocked formulation of
-  ``nms_blocked_mask``, which stops at ``max_out`` survivors; on the card
-  one launch that scans tiles of 64 candidates against the kept set.
+  ``nms_blocked_mask``, which stops at ``max_out`` survivors.
 
-Both return the first ``max_out`` survivors of the exact greedy answer, so
-the choice between them changes no result.
+On the card both are one launch of the same scan, tiles of 64 candidates
+against the kept set (K2 with 1024 threads a problem, K3 with 256). Both
+return the first ``max_out`` survivors of the exact greedy answer, so the
+choice between them changes no result.
+
+:func:`decode_select` is K3 on the decode path: the selection half of the
+detection decode (per-class top-k, per-class NMS, the rounded-zero-area
+drop and the final top ``d``), one launch for a batch on the card.
 """
 
 from __future__ import annotations
 
+import ctypes
+import functools
+
 import torch
 
 from mask_rcnn_tpu_torch.ops import _kernels
+from mask_rcnn_tpu_torch.ops.tensors import gather_rows, top_k_stable
 
-# K3 keeps a problem's boxes and its N x N bitmask in shared memory
-# (csrc/nms.cu::kSmallMaxN).
+# The standalone K3 takes at most this many boxes a problem and keeps its
+# whole kept set in shared memory (csrc/nms.cu::kSmallMaxN).
 SMALL_MAX_N = 1024
 _PLAIN_BLOCK = 1024
 
@@ -214,3 +223,151 @@ def nms_padded(bbox, score, thresh, max_out, valid=None, presorted=False):
             mask, torch.gather(order, 1, pos.clamp(min=0).long()), -1
         ).to(torch.int32)
     return pos, mask
+
+
+def decode_select_plain(cls_bbox, prob, roi_valid, score_thresh,
+                        topk_per_class, nms_thresh, d):
+    """Plain decode selection (mask_rcnn_tpu/models/mask_rcnn.py:170-219):
+    per foreground class the ``topk_per_class`` most probable rows (all
+    when 0 or >= Rp) that are valid and above ``score_thresh``, greedy NMS
+    at ``nms_thresh`` down to ``d``, the drop of boxes whose rounded (half
+    to even) area is not positive, then the top ``d`` of the image.
+
+    Args: cls_bbox (N, Rp, C, 4) float32 decoded boxes, prob (N, Rp, C)
+    float32 class probabilities (class 0 the background, skipped),
+    roi_valid (N, Rp) bool.
+
+    Returns (boxes (N, d, 4), labels (N, d) int32 0-based, -1 pad,
+    scores (N, d), valid (N, d)).
+    """
+    n, rp, n_class = prob.shape
+    n_fg = n_class - 1
+    dev = prob.device
+
+    # classes 1..n_class-1, one problem per (image, class)
+    fg_boxes = cls_bbox[:, :, 1:].transpose(1, 2).reshape(n * n_fg, rp, 4)
+    fg_probs = prob[:, :, 1:].transpose(1, 2).reshape(n * n_fg, rp)
+    valid_l = (roi_valid[:, None, :].expand(n, n_fg, rp).reshape(n * n_fg, rp)
+               & (fg_probs > score_thresh))
+    k = topk_per_class
+    if k and k < rp:
+        top_p, top_i = top_k_stable(
+            torch.where(valid_l, fg_probs, -torch.inf), k
+        )
+        top_b = gather_rows(fg_boxes, top_i)
+        idx, mask = nms_padded(top_b, top_p, nms_thresh, d,
+                               valid=torch.isfinite(top_p), presorted=True)
+        sel = idx.clamp(min=0).long()
+        b = gather_rows(top_b, sel)
+        s = torch.where(mask, torch.gather(top_p, 1, sel), 0.0)
+    else:
+        idx, mask = nms_padded(fg_boxes, fg_probs, nms_thresh, d,
+                               valid=valid_l)
+        sel = idx.clamp(min=0).long()
+        b = gather_rows(fg_boxes, sel)
+        s = torch.gather(fg_probs, 1, sel)
+
+    b = b.reshape(n, n_fg * d, 4)
+    s = s.reshape(n, n_fg * d)
+    m = mask.reshape(n, n_fg * d)
+    labels = torch.arange(n_fg, dtype=torch.int32, device=dev)
+    labels = labels[:, None].expand(n_fg, d).reshape(-1)
+
+    # Drop boxes whose rounded (half to even) integer area is zero.
+    bi = torch.round(b)
+    area = (bi[..., 2] - bi[..., 0]) * (bi[..., 3] - bi[..., 1])
+    m = m & (area > 0)
+
+    top_s, top_i = top_k_stable(torch.where(m, s, -torch.inf), d)
+    out_valid = torch.isfinite(top_s)
+    out_boxes = torch.where(out_valid[..., None], gather_rows(b, top_i), 0.0)
+    out_labels = torch.where(out_valid, labels[top_i], -1)
+    out_scores = torch.where(out_valid, top_s, 0.0)
+    return out_boxes, out_labels, out_scores, out_valid
+
+
+@functools.lru_cache(maxsize=None)
+def decode_limits():
+    """What the decode kernel takes (``csrc/nms.cu``): rows a class (Rp),
+    ``n_fg * d`` candidates, foreground classes, and ``d``."""
+    out = (ctypes.c_int * 4)()
+    _kernels.check(_kernels.lib().mrcnn_decode_limits(out),
+                   "mrcnn_decode_limits")
+    return {"rows": out[0], "candidates": out[1], "classes": out[2],
+            "d": out[3]}
+
+
+# Per (device, stream): one uint32 counter an image for the decode kernel's
+# last-block merge. Zero when allocated; each launch leaves it zero.
+_TICKETS = {}
+
+
+def _tickets(device, n):
+    key = (device, _kernels.stream_ptr(device))
+    t = _TICKETS.get(key)
+    if t is None or t.numel() < n:
+        t = torch.zeros(max(n, 8), dtype=torch.int32, device=device)
+        _TICKETS[key] = t
+    return t
+
+
+def decode_select(cls_bbox, prob, roi_valid, score_thresh, topk_per_class,
+                  nms_thresh, d):
+    """K3 wrapper, the decode's selection (see :func:`decode_select_plain`
+    for the arguments and outputs). A CPU tensor takes the plain version; a
+    CUDA tensor one launch of ``csrc/nms.cu::decode_select_kernel`` for the
+    whole batch, whose outputs equal the plain version's on the card bit for
+    bit. Raises on what the kernel does not take: contiguous float32 prob
+    (N, Rp, C) and 16-byte aligned cls_bbox (N, Rp, C, 4), bool roi_valid
+    (N, Rp), all on one device, within :func:`decode_limits`."""
+    if prob.device.type == "cpu":
+        return decode_select_plain(cls_bbox, prob, roi_valid, score_thresh,
+                                   topk_per_class, nms_thresh, d)
+    if prob.device.type != "cuda":
+        raise ValueError(f"unsupported device {prob.device}")
+    if (prob.dim() != 3 or prob.dtype != torch.float32
+            or not prob.is_contiguous() or prob.shape[-1] < 2):
+        raise ValueError("prob must be a contiguous float32 (N, Rp, C) "
+                         f"tensor with C >= 2, got {tuple(prob.shape)} "
+                         f"{prob.dtype}")
+    n, rp, c = prob.shape
+    if (cls_bbox.shape != (n, rp, c, 4) or cls_bbox.dtype != torch.float32
+            or not cls_bbox.is_contiguous() or cls_bbox.data_ptr() % 16
+            or cls_bbox.device != prob.device):
+        raise ValueError("cls_bbox must be a contiguous, 16-byte aligned "
+                         f"float32 {(n, rp, c, 4)} tensor on prob's device, "
+                         f"got {tuple(cls_bbox.shape)} {cls_bbox.dtype}")
+    if (roi_valid.shape != (n, rp) or roi_valid.dtype != torch.bool
+            or not roi_valid.is_contiguous()
+            or roi_valid.device != prob.device):
+        raise ValueError(f"roi_valid must be a contiguous bool {(n, rp)} "
+                         "tensor on prob's device")
+    lim = decode_limits()
+    if (rp > lim["rows"] or c - 1 > lim["classes"] or d > lim["d"]
+            or (c - 1) * d > lim["candidates"] or d < 0):
+        raise ValueError(
+            f"decode_select takes Rp <= {lim['rows']}, at most "
+            f"{lim['classes']} classes, 0 <= d <= {lim['d']} and n_fg * d <= "
+            f"{lim['candidates']}; got Rp={rp}, n_fg={c - 1}, d={d}")
+    dev = prob.device
+    f32 = dict(dtype=torch.float32, device=dev)
+    s_boxes = torch.empty((n, c - 1, d, 4), **f32)
+    s_scores = torch.empty((n, c - 1, d), **f32)
+    s_counts = torch.empty((n, c - 1), dtype=torch.int32, device=dev)
+    boxes = torch.empty((n, d, 4), **f32)
+    labels = torch.empty((n, d), dtype=torch.int32, device=dev)
+    scores = torch.empty((n, d), **f32)
+    valid = torch.empty((n, d), dtype=torch.bool, device=dev)
+    err = _kernels.lib().mrcnn_decode_select(
+        prob.data_ptr(), cls_bbox.data_ptr(), roi_valid.data_ptr(), n, rp, c,
+        float(score_thresh), int(topk_per_class), float(nms_thresh), d,
+        s_boxes.data_ptr(), s_scores.data_ptr(), s_counts.data_ptr(),
+        _tickets(dev, n).data_ptr(), boxes.data_ptr(), labels.data_ptr(),
+        scores.data_ptr(), valid.data_ptr(), _kernels.stream_ptr(dev),
+    )
+    _kernels.check(err, "mrcnn_decode_select")
+    decode_select.launches += 1
+    return boxes, labels, scores, valid
+
+
+decode_select.launches = 0

@@ -829,7 +829,9 @@ def roi_pool_backward(grad_out, features, rois, roi_indices, spatial_scale):
     2^-(m-2), ..., 1/2, and a feature gets the product of its row and column
     weights, summed over the bins that read it. A CPU tensor takes
     :func:`roi_pool_backward_plain`; a CUDA tensor the kernel (float32
-    atomics, cast at the end)."""
+    atomics, cast at the end), which reads 16-byte channel vectors when C
+    is a multiple of 8 (bf16) or 4 (float32) and one channel a thread
+    otherwise, and takes bins of at most 32 rows."""
     if grad_out.device.type == "cpu":
         return roi_pool_backward_plain(grad_out, features, rois, roi_indices,
                                        spatial_scale)
@@ -843,6 +845,9 @@ def roi_pool_backward(grad_out, features, rois, roi_indices, spatial_scale):
                          f"{features.dtype}")
     _check_cuda_flat(rois, roi_indices, grad_out.device)
     n, h, w, _ = features.shape
+    if -(-h // p) + 1 > 32:
+        raise ValueError(f"roi_pool_backward takes bins of at most 32 rows "
+                         f"(ceil(H / P) + 1), got H={h}, P={p}")
     acc = torch.zeros((n, h, w, c), dtype=torch.float32,
                       device=grad_out.device)
     _launch_flat("mrcnn_roi_pool_bwd",

@@ -39,7 +39,11 @@ import torch
 
 from mask_rcnn_tpu_torch.ops import _kernels
 from mask_rcnn_tpu_torch.ops.boxes import bbox2loc, bbox_iou
-from mask_rcnn_tpu_torch.ops.tensors import constant, top_k_stable
+from mask_rcnn_tpu_torch.ops.tensors import (
+    constant,
+    gather_rows,
+    top_k_stable,
+)
 
 
 
@@ -277,11 +281,6 @@ def _sample_masked(priority, candidate_mask, k_static):
     return idx, torch.isfinite(top)
 
 
-def _gather_rows(x, idx):
-    """x (N, S, K), idx (N, D) -> (N, D, K)."""
-    return torch.gather(x, 1, idx[..., None].expand(*idx.shape, x.shape[-1]))
-
-
 # --------------------------------------------------------------------------
 # K9a: anchor_targets
 
@@ -314,7 +313,7 @@ def anchor_targets_plain(bbox, bbox_valid, anchors, img_size, pri_pos,
     keep.scatter_reduce_(1, neg_idx, neg_picked.to(torch.int32), "amax")
     label = torch.where(keep > 0, label, -1)
 
-    loc = bbox2loc(anchors, _gather_rows(bbox, argmax))
+    loc = bbox2loc(anchors, gather_rows(bbox, argmax))
     return loc, label
 
 
@@ -407,13 +406,13 @@ def proposal_targets_plain(roi, roi_valid, bbox, label, bbox_valid, mask,
     sel_valid = torch.gather(all_picked, 1, take)
     sel_pos = torch.gather(is_pos, 1, take)
 
-    sample_roi = _gather_rows(cand, sel_idx)
+    sample_roi = gather_rows(cand, sel_idx)
     sel_gt = torch.gather(gt_assignment, 1, sel_idx)
     gt_roi_label = torch.gather(label.to(torch.int64), 1, sel_gt) + 1
     gt_roi_label = torch.where(sel_pos, gt_roi_label, 0)
     gt_roi_label = torch.where(sel_valid, gt_roi_label, -1)
 
-    gt_loc = bbox2loc(sample_roi, _gather_rows(bbox, sel_gt))
+    gt_loc = bbox2loc(sample_roi, gather_rows(bbox, sel_gt))
     gt_loc = ((gt_loc - constant(tuple(loc_normalize_mean), dev))
               / constant(tuple(loc_normalize_std), dev))
 

@@ -15,6 +15,11 @@ def top_k_stable(x, k, dim=-1):
     return values.narrow(dim, 0, k), indices.narrow(dim, 0, k)
 
 
+def gather_rows(x, idx):
+    """x (..., R, K), idx (..., D) -> (..., D, K)."""
+    return torch.gather(x, -2, idx[..., None].expand(*idx.shape, x.shape[-1]))
+
+
 @functools.lru_cache(maxsize=32)
 def constant(values: tuple, device: torch.device) -> torch.Tensor:
     """A small float32 tensor on ``device``, uploaded once: an upload on

@@ -11,6 +11,7 @@ import torch
 
 from mask_rcnn_tpu_torch.ops import nms, roi_align
 from tests.oracles import random_boxes
+from tests.torch_decode_cases import DECODE_CARD_CASES, decode_case
 from tests.torch_nms_cases import NMS_EDGE_CASES, dyadic_boxes, nms_case
 from tests.torch_target_cases import CARD_CASES, anchor_case, proposal_case
 
@@ -101,6 +102,89 @@ def test_nms_small_kernel_matches_plain(dev, b, n, max_out):
     want = nms.nms_small_plain(boxes, valid, 0.5, max_out)
     assert torch.equal(got[0].cpu(), want[0])
     assert torch.equal(got[1].cpu(), want[1])
+
+
+# The K2 edge cases at N <= SMALL_MAX_N, where nms_padded takes nms_small.
+NMS_SMALL_EDGE_CASES = [(1000, *case[1:]) for case in NMS_EDGE_CASES]
+
+
+@pytest.mark.parametrize("case", NMS_SMALL_EDGE_CASES, ids=str)
+def test_nms_small_kernel_edge_cases(dev, case):
+    n, max_out, thresh, size, lo, hi, kind = case
+    boxes, _, valid = nms_case(0, n, size, lo, hi, kind)
+    boxes, valid = torch.from_numpy(boxes), torch.from_numpy(valid)
+    before = nms.nms_small.launches
+    got = nms.nms_small(boxes.to(dev), valid.to(dev), thresh, max_out)
+    want = nms.nms_small_plain(boxes, valid, thresh, max_out)
+    assert nms.nms_small.launches == before + 1
+    assert torch.equal(got[0].cpu(), want[0])
+    assert torch.equal(got[1].cpu(), want[1])
+
+
+def decode_on_card(dev, name):
+    """Case ``name``'s decode prologue on the card: (cls_bbox, prob,
+    roi_valid) and the selection's arguments."""
+    from mask_rcnn_tpu_torch.models import mask_rcnn
+
+    cfg_kw, (roi, valid, cls_loc, score, sizes, scales) = decode_case(name)
+    cfg = mask_rcnn.MaskRCNNConfig(**cfg_kw)
+    t = [torch.from_numpy(a).to(dev)
+         for a in (roi, cls_loc, score, sizes, scales)]
+    cls_bbox, prob = mask_rcnn.decode_boxes(cfg, *t)
+    return ((cls_bbox, prob, torch.from_numpy(valid).to(dev)),
+            (cfg.score_thresh, cfg.nms_topk_per_class, cfg.nms_thresh,
+             cfg.detections_per_im), cfg, t)
+
+
+@pytest.mark.parametrize("name", sorted(DECODE_CARD_CASES))
+def test_decode_kernel_matches_plain(dev, name):
+    """The decode kernel against its plain twin on the same card inputs:
+    boxes, labels, scores and valid bit for bit; one launch a decode."""
+    from mask_rcnn_tpu_torch.models import mask_rcnn
+
+    inputs, args, cfg, t = decode_on_card(dev, name)
+    want = nms.decode_select_plain(*inputs, *args)
+    before = nms.decode_select.launches
+    got = mask_rcnn.decode(cfg, t[0], inputs[2], *t[1:])
+    assert nms.decode_select.launches == before + 1
+    again = nms.decode_select(*inputs, *args)  # the tickets were reset
+    for g, a, w in zip(got, again, want):
+        assert g.dtype == w.dtype and g.shape == w.shape
+        assert torch.equal(g, w)
+        assert torch.equal(a, w)
+    if name == "all_invalid_image":
+        assert not want[3][1].any() and want[3][0].any()
+    if name == "fewer_than_d":
+        assert 0 < want[3].sum(1).max() < args[-1]
+
+
+def test_decode_wrapper_rejects_what_the_kernel_does_not_take(dev):
+    (cls_bbox, prob, valid), args, _, _ = decode_on_card(dev, "ties")
+    for bad in (
+        (cls_bbox.cpu(), prob, valid),  # boxes on the CPU
+        (cls_bbox, prob, valid.cpu()),  # validity on the CPU
+        (cls_bbox, prob.double(), valid),  # float64 probabilities
+        (cls_bbox.double(), prob, valid),  # float64 boxes
+        (cls_bbox, prob, valid.int()),  # int validity
+        (cls_bbox[:, :-1], prob, valid),  # one roi short
+        (cls_bbox, prob[..., :-1], valid),  # one class short
+        (cls_bbox.transpose(0, 1), prob.transpose(0, 1),
+         valid.t().contiguous()),  # not contiguous
+    ):
+        with pytest.raises(ValueError):
+            nms.decode_select(*bad, *args)
+    rp = nms.decode_limits()["rows"] + 1  # more rows than the kernel takes
+    with pytest.raises(ValueError):
+        nms.decode_select(
+            torch.zeros((1, rp, 3, 4), device=dev),
+            torch.zeros((1, rp, 3), device=dev),
+            torch.ones((1, rp), dtype=torch.bool, device=dev), *args)
+    with pytest.raises(ValueError):  # n_fg * d over the merge's keys
+        nms.decode_select(
+            torch.zeros((1, 8, 101, 4), device=dev),
+            torch.zeros((1, 8, 101), device=dev),
+            torch.ones((1, 8), dtype=torch.bool, device=dev),
+            0.05, 0, 0.5, 100)
 
 
 def test_wrappers_reject_what_the_kernels_do_not_take(dev):
@@ -541,6 +625,63 @@ def test_roi_pool_backward_kernel_splits_ties(dev):
                                       idx.to(dev), 1 / 16)
     assert torch.equal(got.cpu(), want)
     assert want[0, 2, 2, 0] == 9 / 16 and want[0, 0, 0, 0] == 1 / 16
+
+
+@pytest.mark.parametrize("p", [14, 7])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("c", [1024, 72, 70])
+def test_roi_pool_backward_kernel_edge_cases(dev, dtype, c, p):
+    """K12 at the 1344x832 bucket's features (H = 84: bins of up to 7 rows
+    at P = 14, 8-bit tie masks; up to 13 rows at P = 7, 32-bit ones) on
+    tied relu'd values: rois whose bins share a boundary
+    column (extents that are not multiples of 14, the whole map), gradient
+    rows that are all zero (every odd py, as under res5's stride-2 convs,
+    and whole rois), the rois of two images interleaved. C = 1024 takes the
+    16-byte vector form; 72 is a multiple of 4 but not of 8 (float32
+    vectors, bf16 one channel a thread); 70 neither. An integer cotangent
+    makes every weighted sum exact: identical; a random one within one
+    bf16 rounding and the atomics' order."""
+    rng = np.random.RandomState(11)
+    n, h, w, r = 2, 84, 52, 40
+    feats = tie_features(rng, n, h, w, c)
+    fixed = np.array([
+        [0, 0, h * 16, w * 16], [32, 48, 32 + 20 * 16, 48 + 15 * 16],
+        [100, 60, 100 + 17 * 16, 60 + 23 * 16], [0, 0, 5 * 16, 3 * 16],
+        [h * 16 - 300, w * 16 - 200, h * 16 + 50, w * 16 + 40],
+    ], np.float32)
+    rois = np.concatenate([fixed, random_boxes(rng, r - len(fixed), h * 16,
+                                               w * 16, min_size=8)])
+    idx = (np.arange(r) % 2).astype(np.int32)
+    f = feats.to(dev, dtype)
+    rd, i = torch.from_numpy(rois).to(dev), torch.from_numpy(idx).to(dev)
+    g = rng.randint(-4, 5, (r, p, p, c)).astype(np.float32)
+    g[:, 1::2] = 0.0  # odd rows of bins
+    g[::7] = 0.0  # whole rois
+    g = torch.from_numpy(g).to(dev, dtype)
+    got = roi_align.roi_pool_backward(g, f, rd, i, 1 / 16)
+    want = roi_align.roi_pool_backward_plain(g, f, rd, i, 1 / 16)
+    assert got.dtype == dtype and got.is_contiguous()
+    assert torch.equal(got, want)
+    assert (want.float() != want.float().round()).any()  # ties split
+    g = torch.from_numpy(rng.randn(r, p, p, c).astype(np.float32))
+    g[:, 1::2] = 0.0
+    g = g.to(dev, dtype)
+    got = roi_align.roi_pool_backward(g, f, rd, i, 1 / 16)
+    want = roi_align.roi_pool_backward_plain(g.float(), f.float(), rd, i,
+                                             1 / 16)
+    rtol = 2.0 ** -8 if dtype == torch.bfloat16 else 1e-5
+    torch.testing.assert_close(got.float(), want, rtol=rtol,
+                               atol=1e-5 * want.abs().max().item())
+
+
+def test_roi_pool_backward_refuses_bins_over_32_rows(dev):
+    """The kernel keeps a column's tied rows in a 32-bit mask."""
+    feats = torch.zeros((1, 70, 8, 8), device=dev)
+    rois = torch.tensor([[0.0, 0.0, 1000.0, 100.0]], device=dev)
+    idx = torch.zeros(1, dtype=torch.int32, device=dev)
+    g = torch.ones((1, 2, 2, 8), device=dev)
+    with pytest.raises(ValueError):
+        roi_align.roi_pool_backward(g, feats, rois, idx, 1 / 16)
 
 
 @pytest.mark.parametrize("fn,fwd,bwd", [
