@@ -25,10 +25,12 @@ GPU.
    sampling priorities (labels, rois and masks identical, locs within
    1e-6); the alternate
    poolers' crop-and-resize K5 and max RoI pooling K6 (identical) on the
-   same features with 1000 and 100 flat rois to 14x14 bins, and their
-   backwards K11 and K12 from (1024, 14, 14, 1024) bf16 to
-   (2, 52, 84, 1024), K12 also on rois inside a block of exact zeros
-   (every position of a bin ties);
+   same features with 1000 and 100 flat rois to 14x14 bins, K6 also on
+   features holding NaN and +-inf (a bin with a NaN or +inf pools to 0),
+   and their backwards K11 and K12 from (1024, 14, 14, 1024) bf16 to
+   (2, 52, 84, 1024), K11 also from the gradient res5's stride-2 convs send
+   (zero on every odd py or odd px), K12 also on rois inside a block of
+   exact zeros (every position of a bin ties);
 3. checks the whole predict step, and the whole train step (losses and
    gradients, with the same sampling priorities), on the GPU against the
    plain path on the CPU at small float32 inputs, under each RoI pooler
@@ -73,9 +75,9 @@ is present.
 
 With ``--against OTHER_CHECKOUT`` it runs none of the above: it times K1,
 K2, K4, K7, K13, K10, the two target creators, ``decode`` at the serving
-shape, K12, the align ``predict_step`` at batch 1 and the align train step
-of this checkout against another checkout's on the same inputs (see
-:func:`run_against`).
+shape, K12, K6, K11, the align ``predict_step`` at batch 1 and the align
+train step of this checkout against another checkout's on the same inputs
+(see :func:`run_against`).
 """
 
 import argparse
@@ -1054,15 +1056,40 @@ def pool_reads(rois, p, scale=1 / 16, hw=(52, 84)):
     ys, ye = ra._pool_bounds(r[:, 0], r[:, 2], hw[0], p, scale)
     xs, xe = ra._pool_bounds(r[:, 1], r[:, 3], hw[1], p, scale)
     return float(((ye - ys)[:, :, None] * (xe - xs)[:, None, :]).sum())
+def crop_bwd_atomics(rois, idx, p, n, c, stride2=False, scale=1 / 16,
+                     hw=(52, 84)):
+    """Float4 atomics that K11 issues for these flat rois: per (roi, py) row
+    of cells with a gradient, one per (feature row of nonzero weight,
+    column that a live cell's taps reach with nonzero weight, 4 channels).
+    ``stride2``: the gradient is zero on every odd py or odd px."""
+    from mask_rcnn_tpu_torch.ops import roi_align as ra
+
+    r = rois.float()
+    zero = idx.long() * 0
+    ay = ra._crop_resize_matrix(r[:, 0], r[:, 2], hw[0], hw[0], zero, p,
+                                scale)
+    ax = ra._crop_resize_matrix(r[:, 1], r[:, 3], hw[1], hw[1], zero, p,
+                                scale)
+    live = ((idx >= 0) & (idx < n)).float()
+    if stride2:
+        ay, ax = ay[:, ::2], ax[:, ::2]
+    rows = (ay != 0).sum(-1).float()  # (R, py)
+    cols = (ax != 0).any(1).sum(-1).float()  # (R,)
+    return float((rows * (cols * live)[:, None]).sum()) * c / 4
+
+
 TRAIN_ROIS = 512  # sampled rois per image at batch 2
 
 
 def check_pool_kernels(torch, results):
     """Phase 2, the alternate poolers: K5 and K6 at the serving shapes
-    ((1, 52, 84, 1024) bf16 C4 features, 1000 and 100 rois), K11 and K12 at
-    the train shape ((2, 52, 84, 1024), 512 rois per image), each against
-    its plain version; then K12 on rois inside a block of exact zeros, where
-    every position of a bin ties."""
+    ((1, 52, 84, 1024) bf16 C4 features, 1000 and 100 rois), K6 also on
+    features that hold NaN, +inf and -inf (a bin with a NaN or +inf pools to
+    0), K11 and K12 at the train shape ((2, 52, 84, 1024), 512 rois per
+    image; K11 on a dense gradient and on the one res5's stride-2 convs
+    send, zero on every odd py or odd px), each against its plain version;
+    then K12 on rois inside a block of exact zeros, where every position of
+    a bin ties."""
     from mask_rcnn_tpu_torch.ops import roi_align as ra
 
     dev = torch.device("cuda")
@@ -1129,6 +1156,13 @@ def check_pool_kernels(torch, results):
         if n_diff:
             raise AssertionError(f"K6 differs from its plain version at "
                                  f"{n_diff} values ({r} rois)")
+        # logical bytes, whether from L1, L2 or memory: each (roi, bin row)
+        # reads its rows x the columns of its bins once
+        print(f"K6 logical bytes, {r} rois: "
+              f"{pool_row_reads(args[0], 14) * 2048 / 1e6:.1f} MB of feature "
+              f"reads (the earlier form read every bin whole: "
+              f"{pool_reads(args[0], 14) * 2048 / 1e6:.1f} MB), "
+              f"{nbytes(got) / 1e6:.1f} MB written")
         if r == SERVE_ROIS[0]:  # the box pass's; the mask pass's is printed
             k5["ms"], k5["plain_ms"] = ms, plain_ms
             k6["ms"], k6["plain_ms"] = k6_ms, k6_plain_ms
@@ -1136,6 +1170,27 @@ def check_pool_kernels(torch, results):
             # four bilinear taps per output value; a compare per value read
             k5.update(bound(io, 8 * got.numel()))
             k6.update(bound(io, 1024 * pool_reads(args[0], 14)))
+            k6_args = args
+
+    # NaN, +inf and -inf among the features. A bin that holds a NaN or
+    # +inf pools to 0, as the JAX function's isfinite rule gives.
+    odd = feats.clone()
+    spots = np.random.RandomState(SEED + 3).choice(odd.numel(), 3 * 20000,
+                                                  replace=False)
+    spots = torch.from_numpy(spots).to(dev)
+    for k, v in enumerate((float("nan"), float("inf"), float("-inf"))):
+        odd.view(-1)[spots[k * 20000:(k + 1) * 20000]] = v
+    got, want = ra.roi_pool(odd, *k6_args), ra.roi_pool_plain(odd, *k6_args)
+    torch.cuda.synchronize()
+    n_diff = (got != want).sum().item()
+    zeroed = ((want == 0) & (ra.roi_pool_plain(feats, *k6_args) != 0))
+    print(f"K6 roi_pool on features with NaN and +-inf: identical="
+          f"{n_diff == 0}, {zeroed.sum().item()} values zeroed by a NaN or "
+          f"+inf in their bin, all finite={bool(torch.isfinite(got).all())}")
+    if n_diff or not zeroed.any():
+        raise AssertionError(f"K6 differs from its plain version on "
+                             f"non-finite features at {n_diff} values")
+    k6["max_abs_err"] = max(k6["max_abs_err"], float(n_diff))
     results["crop_and_resize"], results["roi_pool"] = k5, k6
 
     # The backwards at the train shape: 2 images x 512 rois, 14x14 bins.
@@ -1145,22 +1200,32 @@ def check_pool_kernels(torch, results):
     gen = torch.Generator(device=dev).manual_seed(SEED)
     g = torch.randn((n * TRAIN_ROIS, 14, 14, 1024), generator=gen,
                     device=dev).bfloat16()
+    g_s2 = g.clone()  # res5's stride-2 1x1 convs read the even cells only
+    g_s2[:, 1::2] = 0.0
+    g_s2[:, :, 1::2] = 0.0
     shape = (n, fh, fw)
-    for name, line, fn, plain, io, flops in (
-        ("crop_and_resize_backward", 359,
+    for name, line, grad, fn, plain, io, flops in (
+        ("crop_and_resize_backward", 359, g,
          lambda: ra.crop_and_resize_backward(g, rois, idx, shape, 1 / 16),
          lambda: ra.crop_and_resize_backward_plain(g.float(), rois, idx,
                                                    shape, 1 / 16),
          (g, rois, idx), 8 * g.numel()),
-        ("roi_pool_backward", 441,
+        ("crop_and_resize_backward", 359, g_s2,
+         lambda: ra.crop_and_resize_backward(g_s2, rois, idx, shape, 1 / 16),
+         lambda: ra.crop_and_resize_backward_plain(g_s2.float(), rois, idx,
+                                                   shape, 1 / 16),
+         None, None),
+        ("roi_pool_backward", 441, g,
          lambda: ra.roi_pool_backward(g, feats, rois, idx, 1 / 16),
          lambda: ra.roi_pool_backward_plain(g.float(), feats.float(), rois,
                                             idx, 1 / 16),
          (g, feats, rois, idx), 2 * 1024 * pool_reads(rois, 14)),
     ):
         got, want = fn(), plain()
+        s2 = grad is g_s2
         label = f"{'K11' if 'crop' in name else 'K12'} {name} " \
-                f"{tuple(g.shape)} -> {tuple(got.shape)}"
+                f"{tuple(g.shape)}{' stride-2 gradient' if s2 else ''} " \
+                f"-> {tuple(got.shape)}"
         # the float32 atomics' order: 1e-5 of the largest value
         err = compare(label, got, want, 1e-5 * want.abs().max().item())
         if not got.is_contiguous():
@@ -1178,6 +1243,26 @@ def check_pool_kernels(torch, results):
                   f"tied columns once more: over "
                   f"{2 * 2 * 1024 * pool_reads(rois, 14) / 1e6:.1f} MB), "
                   f"at most {reads * 4 / 1e6:.1f} MB of atomics")
+        else:
+            atomics = crop_bwd_atomics(rois, idx, 14, n, 1024, s2)
+            print(f"K11 logical bytes{' (stride 2)' if s2 else ''}: "
+                  f"{nbytes(grad) / 1e6:.1f} MB of gradient reads, "
+                  f"{atomics / 1e6:.2f} M float4 atomics "
+                  f"({atomics * 16 / 1e6:.1f} MB; the earlier form issued "
+                  f"one scalar atomic per nonzero (cell, tap, row, channel):"
+                  f" up to {4 * (grad != 0).sum().item() / 1e6:.1f} M)")
+        if name == "crop_and_resize_backward" and not s2:
+            # the same launch on a zero gradient: every load, no atomic
+            zero_g = torch.zeros_like(g)
+            zero_ms = cuda_ms(torch, lambda: ra.crop_and_resize_backward(
+                zero_g, rois, idx, shape, 1 / 16))
+            print(f"K11 on an all-zero gradient (its loads, no atomic): "
+                  f"{zero_ms:.4f} ms")
+        if s2:
+            results[name].update(max_abs_err=max(
+                results[name]["max_abs_err"], err), s2_ms=ms,
+                s2_plain_ms=plain_ms)
+            continue
         results[name] = entry(name, line)
         results[name].update(max_abs_err=err, ms=ms, plain_ms=plain_ms,
                              **bound(nbytes(*io, got), flops))
@@ -1777,11 +1862,13 @@ AB_CASES = ("k1_bf16_1000", "k1_bf16_100", "k1_f32_1000", "k4_bf16_2000",
             "k2_6000_1000", "k2_2x12000_2000", "k7_bf16_2x512",
             "k13_bf16_1300_700", "k10_bf16_b1", "k10_bf16_b2", "k10_f32_b1",
             "targets_b2", "decode_b1", "decode_b1_t0", "k12_bf16_2x512",
-            "predict_b1", "align_step_b2")
+            "k6_bf16_1000", "k6_bf16_100", "k11_bf16_2x512",
+            "k11_bf16_2x512_s2", "predict_b1", "align_step_b2")
 # Cases whose kernels sum with float32 atomics: the two checkouts' outputs
 # differ in their last bits from run to run, so the A/B prints the largest
 # difference instead of bit-identity.
-AB_ATOMIC = ("k7_bf16_2x512", "k13_bf16_1300_700", "k12_bf16_2x512")
+AB_ATOMIC = ("k7_bf16_2x512", "k13_bf16_1300_700", "k12_bf16_2x512",
+             "k11_bf16_2x512", "k11_bf16_2x512_s2")
 
 
 def ab_inputs(torch, path):
@@ -1800,7 +1887,9 @@ def ab_inputs(torch, path):
     inputs at the serving shape (:func:`decode_arrays`, batch 1; its
     sizes and scales also feed the predict step on the first image); and
     relu'd (2, 52, 84, 1024) features with 2 x 512 flat rois (K12, with a
-    (1024, 14, 14, 1024) gradient drawn on the card)."""
+    (1024, 14, 14, 1024) gradient drawn on the card; K11 with another, dense
+    and zeroed on every odd py or odd px; K6 on the first image's features
+    with the 1000 and 100 rois of K1)."""
     rng = np.random.RandomState(SEED)
     fh, fw = TRAIN_HW[0] // 16, TRAIN_HW[1] // 16
     t = torch.from_numpy
@@ -1941,7 +2030,15 @@ def ab_worker(tree, inputs, out):
                       device="cuda").bfloat16()
     g12 = torch.randn((2 * TRAIN_ROIS, 14, 14, 1024), generator=gen,
                       device="cuda").bfloat16()
+    g11 = torch.randn((2 * TRAIN_ROIS, 14, 14, 1024), generator=gen,
+                      device="cuda").bfloat16()
+    g11_s2 = g11.clone()
+    g11_s2[:, 1::2] = 0.0
+    g11_s2[:, :, 1::2] = 0.0
     pool_feats = x["pool_feats"].bfloat16()
+    pool_feats1 = pool_feats[:1]
+    idx0 = {r: torch.zeros(r, dtype=torch.int32, device="cuda")
+            for r in (1000, 100)}
     dec_cfg = mask_rcnn.MaskRCNNConfig(
         n_fg_class=N_CLASS_FG, min_size=800, max_size=1333,
         anchor_scales=(2, 4, 8, 16, 32), compute_dtype="bfloat16")
@@ -1980,6 +2077,14 @@ def ab_worker(tree, inputs, out):
         "decode_b1_t0": lambda: mask_rcnn.decode(dec_cfg_t0, *dec),
         "k12_bf16_2x512": lambda: roi_align.roi_pool_backward(
             g12, pool_feats, x["pool_rois"], x["pool_idx"], 1 / 16),
+        "k6_bf16_1000": lambda: roi_align.roi_pool(
+            pool_feats1, x["rois_1000"][0], idx0[1000], 14, 1 / 16),
+        "k6_bf16_100": lambda: roi_align.roi_pool(
+            pool_feats1, x["rois_100"][0], idx0[100], 14, 1 / 16),
+        "k11_bf16_2x512": lambda: roi_align.crop_and_resize_backward(
+            g11, x["pool_rois"], x["pool_idx"], (2, *fhw), 1 / 16),
+        "k11_bf16_2x512_s2": lambda: roi_align.crop_and_resize_backward(
+            g11_s2, x["pool_rois"], x["pool_idx"], (2, *fhw), 1 / 16),
         "predict_b1": lambda: tuple(mask_rcnn.predict_step(
             pred_params, dec_cfg, img[torch.float32][:1],
             x["dec_sizes"], x["dec_scales"]).values()),
@@ -2007,6 +2112,8 @@ def run_against(torch, other) -> int:
     ``models/targets.py::anchor_targets`` + ``proposal_targets``),
     ``models/mask_rcnn.py::decode`` at the serving shape (``decode_b1`` at
     score_thresh 0.05, ``decode_b1_t0`` at 0), K12 (``k12_bf16_2x512``),
+    K6 (``k6_bf16_1000``, ``k6_bf16_100``), K11 on a dense gradient and on
+    res5's stride-2 one (``k11_bf16_2x512``, ``k11_bf16_2x512_s2``),
     the align ``predict_step`` at batch 1, 832x1344 bf16 (``predict_b1``,
     with its device time by kernel family) and the align train step
     (``align_step_b2``; its output is the first step's losses) of this
@@ -2016,9 +2123,8 @@ def run_against(torch, other) -> int:
     times (CUDA events and the profiler's device time) and device
     activities per call, whether this checkout's outputs equal the other's
     bit for bit (where not, how many values of the first output differ and
-    by how much; for the atomic kernels K7, K13 and K12 the largest
-    difference,
-    against the largest value), and one JSON line."""
+    by how much; for the atomic kernels K7, K13, K12 and K11 the largest
+    difference, against the largest value), and one JSON line."""
     import tempfile
 
     here = os.path.dirname(os.path.abspath(__file__))
@@ -2074,9 +2180,9 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--against", metavar="OTHER_CHECKOUT",
                     help="time K1, K2, K4, K7, K13, K10, the target "
-                    "creators, decode, K12, the align predict step and the "
-                    "align train step against another checkout's instead "
-                    "of the smoke")
+                    "creators, decode, K12, K6, K11, the align predict step "
+                    "and the align train step against another checkout's "
+                    "instead of the smoke")
     ap.add_argument("--ab-worker", nargs=3, help=argparse.SUPPRESS)
     a = ap.parse_args(argv)
     if a.ab_worker:

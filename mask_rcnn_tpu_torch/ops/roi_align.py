@@ -627,8 +627,11 @@ def crop_and_resize_backward(grad_out, rois, roi_indices, feat_shape,
     """K11 wrapper, the crop-and-resize backward: grad_out (R, P, P, C) ->
     the features' grad (N, H, W, C), contiguous NHWC in grad_out's dtype. A
     CPU tensor takes :func:`crop_and_resize_backward_plain`; a CUDA tensor
-    the kernel, which scatters each cell's four taps with float32 atomics
-    (the sums' last bits vary from run to run) and casts at the end."""
+    the kernel, which sums a row of cells' taps per feature column in
+    registers and scatters them with float32 atomics (the sums' last bits
+    vary from run to run), then casts at the end. It reads 16-byte channel
+    vectors when C is a multiple of 8 (bf16) or 4 (float32) and grad_out
+    starts on a 16-byte boundary, and one channel a thread otherwise."""
     if grad_out.device.type == "cpu":
         return crop_and_resize_backward_plain(grad_out, rois, roi_indices,
                                               feat_shape, spatial_scale)
@@ -884,7 +887,14 @@ class RoIPoolFn(torch.autograd.Function):
 
 def roi_pool(features, rois, roi_indices, out_size, spatial_scale):
     """Quantized max RoI pooling; see :func:`roi_pool_plain`. On the GPU the
-    inputs are those of :func:`crop_and_resize`. With gradients on, the call
+    inputs are those of :func:`crop_and_resize`, and K6 gives the plain
+    version's values bit for bit: a bin that holds a NaN or +inf gives 0,
+    as the JAX function's ``isfinite`` rule does. K6 reads 16-byte channel
+    vectors when C is a multiple of 8 (bf16) or 4 (float32), the features
+    start on a 16-byte boundary and its ring of ``ceil(W / P) + 1`` column
+    maxima fits in shared memory (W / P up to ~100), and one channel a
+    thread otherwise (W / P up to ~400 in float32, ~800 in bf16; past that
+    the launch fails and the wrapper raises). With gradients on, the call
     goes through :class:`RoIPoolFn`, whose backward is K12."""
     if torch.is_grad_enabled() and features.requires_grad:
         return RoIPoolFn.apply(features, rois.detach(), roi_indices,

@@ -552,6 +552,73 @@ def tie_features(rng, n, h, w, c):
     return torch.from_numpy(f)
 
 
+def pool_edge_rois(rng, n, h, w, r):
+    """Flat rois on an (n, h, w) map (feature stride 16): the whole map,
+    rois of extent < 14 (overlapping bins; crops narrower than the output),
+    crop width and height 1, rois past the far borders (border taps with
+    low == high), one past every border (bins at the full ceil(size/P) + 1
+    rows and columns), a zero slot, then random boxes; image indices with
+    the two images interleaved and two out of range (-1 and n)."""
+    fixed = np.array([
+        [0, 0, h * 16, w * 16], [0, 0, 5 * 16, 3 * 16],
+        [32, 48, 32 + 20 * 16, 48 + 15 * 16], [40, 40, 40, 40],
+        [100, 60, 100, 60 + 9 * 16], [100, 60, 100 + 9 * 16, 60],
+        [h * 16 - 100, w * 16 - 90, h * 16 + 200, w * 16 + 300],
+        [-400, -400, h * 16 + 400, w * 16 + 400], [0, 0, 0, 0],
+    ], np.float32)
+    rois = np.concatenate([fixed, random_boxes(rng, r - len(fixed), h * 16,
+                                               w * 16, min_size=8)])
+    idx = (np.arange(r) % n).astype(np.int32)
+    idx[[9, 10]] = [-1, n]
+    return torch.from_numpy(rois), torch.from_numpy(idx)
+
+
+def misaligned(x):
+    """A copy of x whose data pointer sits one element past a 16-byte
+    boundary (a view at an odd offset into a larger buffer, contiguous)."""
+    buf = torch.empty(x.numel() + 1, dtype=x.dtype, device=x.device)
+    y = buf[1:].view(x.shape)
+    y.copy_(x)
+    assert y.is_contiguous() and y.data_ptr() % 16
+    return y
+
+
+@pytest.mark.parametrize("p", [14, 7, 2])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("c", [1024, 72, 70])
+def test_crop_and_resize_backward_kernel_edge_cases(dev, dtype, c, p):
+    """K11 at the 1344x832 bucket's features on the rois of
+    :func:`pool_edge_rois` (crop width 1, border taps with low == high,
+    out-of-range indices: no gradient), with the gradient res5's stride-2
+    1x1 convs send (zero on every odd py or odd px) and zero whole rois,
+    then a dense one. C = 1024 takes the 16-byte vector form; 72 is a
+    multiple of 4 but not of 8 (float32 vectors, bf16 one channel a thread);
+    70 neither; a misaligned gradient takes the one-channel form."""
+    rng = np.random.RandomState(13)
+    n, h, w, r = 2, 84, 52, 40
+    rois, idx = pool_edge_rois(rng, n, h, w, r)
+    rd, i = rois.to(dev), idx.to(dev)
+    g = rng.randn(r, p, p, c).astype(np.float32)
+    s2 = g.copy()
+    s2[:, 1::2] = 0.0
+    s2[:, :, 1::2] = 0.0
+    s2[::7] = 0.0
+    rtol = 2.0 ** -8 if dtype == torch.bfloat16 else 1e-5
+    for grad in (s2, g):
+        gd = torch.from_numpy(grad).to(dev, dtype)
+        want = roi_align.crop_and_resize_backward_plain(
+            gd.float(), rd, i, (n, h, w), 1 / 16)
+        if grad is g:  # border taps reach the last row and column
+            assert (want[:, -1] != 0).any() and (want[:, :, -1] != 0).any()
+        for gk in (gd, misaligned(gd)):
+            got = roi_align.crop_and_resize_backward(gk, rd, i, (n, h, w),
+                                                     1 / 16)
+            assert got.dtype == dtype and got.is_contiguous()
+            # the float32 atomics' order, and one bf16 rounding
+            torch.testing.assert_close(got.float(), want, rtol=rtol,
+                                       atol=1e-5 * want.abs().max().item())
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("out_size", [14, 7])
 def test_crop_and_resize_kernels_match_plain(dev, dtype, out_size):
@@ -577,6 +644,59 @@ def test_crop_and_resize_kernels_match_plain(dev, dtype, out_size):
     # float32: the atomics' order; bf16: one rounding of the float32 sum
     torch.testing.assert_close(got.float(), want, rtol=rtol,
                                atol=1e-5 * want.abs().max().item())
+
+
+@pytest.mark.parametrize("p", [14, 7, 2])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("c", [1024, 72, 70])
+def test_roi_pool_kernel_edge_cases(dev, dtype, c, p):
+    """K6 at the 1344x832 bucket's features (H = 84, W = 52) on tied relu'd
+    values and the rois of :func:`pool_edge_rois`: overlapping bins, bins at
+    the full ceil(size/P) + 1 rows and columns, empty bins, and rois of an
+    out-of-range index, which pool zeros. C = 1024 takes the 16-byte vector
+    form; 72 is a multiple of 4 but not of 8 (float32 vectors, bf16 one
+    channel a thread); 70 neither; misaligned features take the
+    one-channel form. The max is exact: identical to the plain version."""
+    rng = np.random.RandomState(14)
+    n, h, w, r = 2, 84, 52, 40
+    f = tie_features(rng, n, h, w, c).to(dev, dtype)
+    rois, idx = pool_edge_rois(rng, n, h, w, r)
+    rd, i = rois.to(dev), idx.to(dev)
+    ok = (i >= 0) & (i < n)
+    want = roi_align.roi_pool_plain(f, rd[ok], i[ok], p, 1 / 16)
+    assert (want == 0).any()
+    for fk in (f, misaligned(f)):
+        got = roi_align.roi_pool(fk, rd, i, p, 1 / 16)
+        assert got.dtype == dtype and got.shape == (r, p, p, c)
+        assert torch.equal(got[ok], want)
+        assert not got[~ok].any()  # another image's index pools zeros
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("c", [1024, 70])
+def test_roi_pool_kernel_nonfinite_bins_give_zero(dev, dtype, c):
+    """A bin that holds a NaN or +inf pools to 0, as the plain version
+    and the JAX function give (tests/test_torch_pooling.py); -inf beside
+    finite values is an ordinary value. A max that drops the NaN (fmaxf)
+    returns the bin's other maximum instead."""
+    rng = np.random.RandomState(15)
+    n, h, w, r = 2, 26, 42, 60
+    feats = rng.randn(n, h, w, c).astype(np.float32)
+    flat = feats.reshape(-1)
+    spots = rng.choice(flat.size, 3 * flat.size // 200, replace=False)
+    k = len(spots) // 3
+    flat[spots[:k]] = np.nan
+    flat[spots[k:2 * k]] = np.inf
+    flat[spots[2 * k:]] = -np.inf
+    feats[1, 4:12, 6:20] = -np.inf
+    f = torch.from_numpy(feats).to(dev, dtype)
+    rois, idx = flat_edge_rois(rng, n, h, w, r)
+    rd, i = rois.to(dev), idx.to(dev)
+    for p in (14, 7):
+        want = roi_align.roi_pool_plain(f, rd, i, p, 1 / 16)
+        got = roi_align.roi_pool(f, rd, i, p, 1 / 16)
+        assert torch.isfinite(want).all()
+        assert torch.equal(got, want)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

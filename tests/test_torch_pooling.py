@@ -96,6 +96,73 @@ def test_roi_pool_matches_jax_exactly(out_size, dtype):
         got.float().numpy())
 
 
+def nonfinite_bin_oracle(feats, rois, idx, out_size):
+    """Per bin and channel: 0 for an empty bin or one that holds a NaN, else
+    its max, and 0 where that max is +inf or -inf (the JAX function's
+    ``isfinite`` rule). The bins are the port's ``_pool_bounds``, read to at
+    most ``ceil(size / P) + 1`` rows and columns as the JAX loops read them.
+    Also returns how many (bin, channel) values hold a NaN, hold +inf, and
+    hold -inf beside a finite max."""
+    n, h, w, c = feats.shape
+    r = torch.from_numpy(rois)
+    ys, ye = (b.numpy() for b in roi_align._pool_bounds(
+        r[:, 0], r[:, 2], h, out_size, 1 / 16))
+    xs, xe = (b.numpy() for b in roi_align._pool_bounds(
+        r[:, 1], r[:, 3], w, out_size, 1 / 16))
+    ye = np.minimum(ye, ys + -(-h // out_size) + 1)
+    xe = np.minimum(xe, xs + -(-w // out_size) + 1)
+    out = np.zeros((len(rois), out_size, out_size, c), np.float32)
+    counts = np.zeros(3, np.int64)
+    for k in range(len(rois)):
+        for py in range(out_size):
+            for px in range(out_size):
+                v = feats[idx[k], ys[k, py]:ye[k, py], xs[k, px]:xe[k, px]]
+                v = v.reshape(-1, c)
+                if not len(v):
+                    continue
+                nan = np.isnan(v).any(0)
+                top = np.where(nan, np.inf, v).max(0)
+                keep = ~nan & np.isfinite(top)
+                out[k, py, px] = np.where(keep, top, 0.0)
+                counts += [nan.sum(), (~nan & (top == np.inf)).sum(),
+                           (keep & (v == -np.inf).any(0)).sum()]
+    return out, counts
+
+
+@pytest.mark.parametrize("dtype", [np.float32, jnp.bfloat16])
+def test_roi_pool_nonfinite_bins_give_zero(dtype):
+    """A bin that holds a NaN or +inf pools to 0 (the JAX function's chained
+    ``jnp.maximum`` propagates the NaN, then its ``isfinite`` rule zeroes
+    the bin); -inf beside finite values is an ordinary value; a bin of only
+    -inf pools to 0. The plain version agrees with the JAX function and
+    with the oracle everywhere, in float32 and bf16."""
+    rng = np.random.RandomState(12)
+    feats = rng.randn(N, H, W, C).astype(np.float32)
+    flat = feats.reshape(-1)
+    spots = rng.choice(flat.size, 60, replace=False)
+    flat[spots[:20]] = np.nan
+    flat[spots[20:40]] = np.inf
+    flat[spots[40:]] = -np.inf
+    feats[2, 5:9, 9:13] = -np.inf  # whole bins of -inf
+    feats = np.asarray(jnp.asarray(feats, dtype))
+    rois, idx = edge_rois(rng)
+    rois = np.concatenate([rois, [[80, 144, 200, 200]]]).astype(np.float32)
+    idx = np.concatenate([idx, [2]]).astype(np.int32)
+    f32 = np.array(feats, np.float32)
+    for out_size in (7, 2):
+        want = np.asarray(jax_roi_pool(feats, rois, idx, out_size, 1 / 16))
+        tdtype = torch.float32 if dtype == np.float32 else torch.bfloat16
+        f = torch.from_numpy(f32).to(tdtype)
+        got = roi_align.roi_pool_plain(f, *torch_args(rois, idx), out_size,
+                                       1 / 16, roi_chunk=5)
+        oracle, counts = nonfinite_bin_oracle(f32, rois, idx, out_size)
+        assert counts.min() > 0, counts  # each kind of bin is exercised
+        np.testing.assert_array_equal(np.asarray(want, np.float32), oracle)
+        np.testing.assert_array_equal(got.float().numpy(), oracle)
+        # the bins of only -inf: 0
+        assert (oracle[-1, out_size // 2:, out_size // 2:] == 0).all()
+
+
 @pytest.mark.parametrize("out_size", [7, 14, 2])
 def test_roi_pool_matches_chainer_oracle_exactly(out_size):
     rng = np.random.RandomState(2)
