@@ -25,8 +25,12 @@ GPU.
    sampling priorities (labels, rois and masks identical, locs within
    1e-6); the alternate
    poolers' crop-and-resize K5 and max RoI pooling K6 (identical) on the
-   same features with 1000 and 100 flat rois to 14x14 bins, K6 also on
-   features holding NaN and +-inf (a bin with a NaN or +inf pools to 0),
+   same features with 1000 and 100 flat rois to 14x14 bins, with K5's
+   logical tap reads, the card's write floor (``zero_()`` of a tensor of
+   K5's output, a yardstick the port never calls) and K5 on its stores
+   alone (every roi index out of range: zeros, no reads) beside K5's time,
+   K6 also on features holding NaN and +-inf (a bin with a NaN or +inf
+   pools to 0),
    and their backwards K11 and K12 from (1024, 14, 14, 1024) bf16 to
    (2, 52, 84, 1024), K11 also from the gradient res5's stride-2 convs send
    (zero on every odd py or odd px), K12 also on rois inside a block of
@@ -75,9 +79,10 @@ is present.
 
 With ``--against OTHER_CHECKOUT`` it runs none of the above: it times K1,
 K2, K4, K7, K13, K10, the two target creators, ``decode`` at the serving
-shape, K12, K6, K11, the align ``predict_step`` at batch 1 and the align
-train step of this checkout against another checkout's on the same inputs
-(see :func:`run_against`).
+shape, K12, K6, K11, K5 (bf16 at 1000 and 100 rois, float32 at 1000), the
+align ``predict_step`` at batch 1 and the align train step of this
+checkout against another checkout's on the same inputs (see
+:func:`run_against`).
 """
 
 import argparse
@@ -1078,12 +1083,58 @@ def crop_bwd_atomics(rois, idx, p, n, c, stride2=False, scale=1 / 16,
     return float((rows * (cols * live)[:, None]).sum()) * c / 4
 
 
+def crop_row_reads(rois, p, scale=1 / 16, hw=(52, 84)):
+    """Feature positions that K5 reads for these flat rois, (redesigned,
+    earlier): each (roi, cell row) reads its one or two feature rows (two
+    unless the y tap sits on the border) at each distinct column that its
+    cells' x taps reach, once; the earlier form read four taps a cell."""
+    r = rois.float().cpu().numpy()
+
+    def taps(lo, hi, size):  # crop_tap's (low, high), (R, P)
+        lo_i = np.round(lo * scale)
+        hi_i = np.maximum(np.round(hi * scale), lo_i + 1.0)
+        step = (hi_i - lo_i - 1.0) / max(p - 1, 1)
+        i = np.arange(p, dtype=np.float32)
+        c = np.clip(lo_i[:, None] + i * step[:, None], 0.0, size - 1.0)
+        low = np.minimum(np.floor(c).astype(np.int64), size - 1)
+        return low, np.minimum(low + 1, size - 1)
+
+    yl, yh = taps(r[:, 0], r[:, 2], hw[0])
+    xl, xh = taps(r[:, 1], r[:, 3], hw[1])
+    rows = (1 + (yh != yl)).sum(1)  # (R,)
+    cols = np.sort(np.concatenate([xl, xh], 1), 1)
+    distinct = 1 + (np.diff(cols, axis=1) != 0).sum(1)  # (R,)
+    return float((rows * distinct).sum()), float(4 * p * p * len(r))
+
+
 TRAIN_ROIS = 512  # sampled rois per image at batch 2
+POOL_ZERO_BLOCK = (slice(10, 20), slice(20, 40))  # of phase 2's features
+
+
+def pool_features(rng, n):
+    """Phase 2's pooler features, (n, 52, 84, 1024) float32: relu'd values,
+    half of them exact zeros as on relu'd res4, and a block of zeros in the
+    first image."""
+    fh, fw = TRAIN_HW[0] // 16, TRAIN_HW[1] // 16
+    f = np.maximum(rng.randn(n, fh, fw, 1024), 0).astype(np.float32)
+    f[(0, *POOL_ZERO_BLOCK)] = 0.0
+    return f
+
+
+def pool_rois(rng, n, r):
+    """Phase 2's flat rois, r proposal-like boxes an image, the last r // 20
+    of the first image's zero (padded slots, as proposals have), and their
+    image indices (int32)."""
+    boxes = np.concatenate([proposal_like_boxes(rng, r, *TRAIN_HW)
+                            for _ in range(n)])
+    boxes[r - r // 20:r] = 0.0
+    return boxes, np.repeat(np.arange(n, dtype=np.int32), r)
 
 
 def check_pool_kernels(torch, results):
     """Phase 2, the alternate poolers: K5 and K6 at the serving shapes
-    ((1, 52, 84, 1024) bf16 C4 features, 1000 and 100 rois), K6 also on
+    ((1, 52, 84, 1024) bf16 C4 features, 1000 and 100 rois), K5 beside
+    the write floor and its own stores alone, K6 also on
     features that hold NaN, +inf and -inf (a bin with a NaN or +inf pools to
     0), K11 and K12 at the train shape ((2, 52, 84, 1024), 512 rois per
     image; K11 on a dense gradient and on the one res5's stride-2 convs
@@ -1095,20 +1146,13 @@ def check_pool_kernels(torch, results):
     dev = torch.device("cuda")
     rng = np.random.RandomState(SEED + 2)
     fh, fw = TRAIN_HW[0] // 16, TRAIN_HW[1] // 16
-    zero_block = (slice(10, 20), slice(20, 40))
 
     def features(n):
-        # relu'd values: half of them exact zeros, as on relu'd res4
-        f = np.maximum(rng.randn(n, fh, fw, 1024), 0).astype(np.float32)
-        f[(0, *zero_block)] = 0.0
-        return torch.from_numpy(f).to(dev).bfloat16()
+        return torch.from_numpy(pool_features(rng, n)).to(dev).bfloat16()
 
     def flat_rois(n, r):
-        boxes = np.concatenate([proposal_like_boxes(rng, r, *TRAIN_HW)
-                                for _ in range(n)])
-        boxes[r - r // 20:r] = 0.0  # zero-padded slots, as proposals have
-        idx = np.repeat(np.arange(n, dtype=np.int32), r)
-        return torch.from_numpy(boxes).to(dev), torch.from_numpy(idx).to(dev)
+        return tuple(torch.from_numpy(a).to(dev)
+                     for a in pool_rois(rng, n, r))
 
     def entry(name, line):
         return {"name": name, "route": "cuda",
@@ -1133,8 +1177,8 @@ def check_pool_kernels(torch, results):
     feats = features(1)
     for r in SERVE_ROIS:
         args = (*flat_rois(1, r), 14, 1 / 16)
-        err = compare(f"K5 crop_and_resize {r} rois",
-                      ra.crop_and_resize(feats, *args),
+        got = ra.crop_and_resize(feats, *args)
+        err = compare(f"K5 crop_and_resize {r} rois", got,
                       ra.crop_and_resize_plain(feats.float(), *args), 1e-5)
         k5["max_abs_err"] = max(k5["max_abs_err"], err)
         ms = cuda_ms(torch, lambda: ra.crop_and_resize(feats, *args))
@@ -1142,6 +1186,55 @@ def check_pool_kernels(torch, results):
             feats.float(), *args), warmup=1, iters=2)
         print(f"K5 crop_and_resize {r} rois: kernel {ms:.4f} ms, plain f32 "
               f"{plain_ms:.4f} ms")
+        # The write floor: torch's fill of a tensor of K5's output, a
+        # yardstick only (the port never calls it for K5); and K5 on its
+        # stores alone: every roi index out of range, so each block writes
+        # zeros through the kernel's own 16-byte stores and reads nothing.
+        # Device times from the profiler beside the events: at 100 rois
+        # the wrapper's host time outlasts the kernel.
+        out = torch.empty_like(got)
+        no_idx = torch.full_like(args[1], -1)
+        zeros = ra.crop_and_resize(feats, args[0], no_idx, *args[2:])
+        torch.cuda.synchronize()
+        if zeros.any():
+            raise AssertionError("K5 wrote a nonzero value for a roi of an "
+                                 "out-of-range index")
+        wrote = nbytes(got)
+
+        def one_launch_ms(fn):
+            """Device ms a call of ``fn``, which runs one kernel, from the
+            profiler; None where each of three sessions recorded another
+            count (late in a process a session now and then drops
+            activities)."""
+            for _ in range(3):
+                dev_ms, activities = device_profile(torch, fn)
+                if activities == 1:
+                    return dev_ms
+            return None
+
+        times = {label: (cuda_ms(torch, fn), one_launch_ms(fn))
+                 for label, fn in (
+            ("out.zero_() (the write floor)", out.zero_),
+            ("K5 on its stores alone (every index out of range)",
+             lambda: ra.crop_and_resize(feats, args[0], no_idx, *args[2:])),
+            ("K5", lambda: ra.crop_and_resize(feats, *args)))}
+        (_, floor), (_, k5_dev) = times["out.zero_() (the write floor)"], \
+            times["K5"]
+        print(f"K5 against the write floor, {r} rois, the {tuple(got.shape)} "
+              f"{str(got.dtype)[6:]} output, ms by CUDA events / device "
+              f"(profiler; TB/s at the device time): " + "; ".join(
+                  f"{label} {t:.4f} / {d:.4f} ({wrote / d / 1e9:.3f} TB/s)"
+                  if d else f"{label} {t:.4f} / not measured (the profiler "
+                  "dropped launches)"
+                  for label, (t, d) in times.items())
+              + (f"; K5 = {k5_dev / floor:.2f}x the floor"
+                 if floor and k5_dev else ""))
+        reads, old_reads = crop_row_reads(args[0], 14)
+        print(f"K5 logical bytes, {r} rois: {reads * 2048 / 1e6:.1f} MB of "
+              f"tap reads (two rows of each distinct column of a cell row; "
+              f"the earlier form read four taps a cell: "
+              f"{old_reads * 2048 / 1e6:.1f} MB), {wrote / 1e6:.1f} MB "
+              f"written")
 
         got, want = ra.roi_pool(feats, *args), ra.roi_pool_plain(feats, *args)
         torch.cuda.synchronize()
@@ -1269,7 +1362,7 @@ def check_pool_kernels(torch, results):
 
     # K12's tie rule: rois inside the zero block, where every position of a
     # bin ties; an integer gradient makes every weighted sum exact.
-    y0, x0 = zero_block[0].start * 16, zero_block[1].start * 16
+    y0, x0 = POOL_ZERO_BLOCK[0].start * 16, POOL_ZERO_BLOCK[1].start * 16
     tie = np.stack([rng.uniform(y0, y0 + 64, 64),
                     rng.uniform(x0, x0 + 160, 64),
                     rng.uniform(y0 + 80, y0 + 150, 64),
@@ -1863,7 +1956,8 @@ AB_CASES = ("k1_bf16_1000", "k1_bf16_100", "k1_f32_1000", "k4_bf16_2000",
             "k13_bf16_1300_700", "k10_bf16_b1", "k10_bf16_b2", "k10_f32_b1",
             "targets_b2", "decode_b1", "decode_b1_t0", "k12_bf16_2x512",
             "k6_bf16_1000", "k6_bf16_100", "k11_bf16_2x512",
-            "k11_bf16_2x512_s2", "predict_b1", "align_step_b2")
+            "k11_bf16_2x512_s2", "k5_bf16_1000", "k5_bf16_100",
+            "k5_f32_1000", "predict_b1", "align_step_b2")
 # Cases whose kernels sum with float32 atomics: the two checkouts' outputs
 # differ in their last bits from run to run, so the A/B prints the largest
 # difference instead of bit-identity.
@@ -1889,7 +1983,10 @@ def ab_inputs(torch, path):
     relu'd (2, 52, 84, 1024) features with 2 x 512 flat rois (K12, with a
     (1024, 14, 14, 1024) gradient drawn on the card; K11 with another, dense
     and zeroed on every odd py or odd px; K6 on the first image's features
-    with the 1000 and 100 rois of K1)."""
+    with the 1000 and 100 rois of K1); and phase 2's K5 inputs, drawn as
+    :func:`check_pool_kernels` draws them (:func:`pool_features`,
+    :func:`pool_rois`): relu'd (1, 52, 84, 1024) features with 1000 and 100
+    flat rois."""
     rng = np.random.RandomState(SEED)
     fh, fw = TRAIN_HW[0] // 16, TRAIN_HW[1] // 16
     t = torch.from_numpy
@@ -1940,6 +2037,10 @@ def ab_inputs(torch, path):
                            for _ in range(2)])
     x["pool_rois"] = t(flat)
     x["pool_idx"] = t(np.repeat(np.arange(2, dtype=np.int32), TRAIN_ROIS))
+    rng2 = np.random.RandomState(SEED + 2)
+    x["k5_feats"] = t(pool_features(rng2, 1))
+    for r in SERVE_ROIS:
+        x[f"k5_rois_{r}"], x[f"k5_idx_{r}"] = map(t, pool_rois(rng2, 1, r))
     s, p = len(x["anchors"]), 2000 + 8
     for k, shape in (("a_pos", (2, s)), ("a_neg", (2, s)), ("p_pos", (2, p)),
                      ("p_neg", (2, p))):
@@ -2037,6 +2138,7 @@ def ab_worker(tree, inputs, out):
     g11_s2[:, :, 1::2] = 0.0
     pool_feats = x["pool_feats"].bfloat16()
     pool_feats1 = pool_feats[:1]
+    k5_feats = x["k5_feats"].bfloat16()
     idx0 = {r: torch.zeros(r, dtype=torch.int32, device="cuda")
             for r in (1000, 100)}
     dec_cfg = mask_rcnn.MaskRCNNConfig(
@@ -2085,6 +2187,12 @@ def ab_worker(tree, inputs, out):
             g11, x["pool_rois"], x["pool_idx"], (2, *fhw), 1 / 16),
         "k11_bf16_2x512_s2": lambda: roi_align.crop_and_resize_backward(
             g11_s2, x["pool_rois"], x["pool_idx"], (2, *fhw), 1 / 16),
+        "k5_bf16_1000": lambda: roi_align.crop_and_resize(
+            k5_feats, x["k5_rois_1000"], x["k5_idx_1000"], 14, 1 / 16),
+        "k5_bf16_100": lambda: roi_align.crop_and_resize(
+            k5_feats, x["k5_rois_100"], x["k5_idx_100"], 14, 1 / 16),
+        "k5_f32_1000": lambda: roi_align.crop_and_resize(
+            x["k5_feats"], x["k5_rois_1000"], x["k5_idx_1000"], 14, 1 / 16),
         "predict_b1": lambda: tuple(mask_rcnn.predict_step(
             pred_params, dec_cfg, img[torch.float32][:1],
             x["dec_sizes"], x["dec_scales"]).values()),
@@ -2113,7 +2221,8 @@ def run_against(torch, other) -> int:
     ``models/mask_rcnn.py::decode`` at the serving shape (``decode_b1`` at
     score_thresh 0.05, ``decode_b1_t0`` at 0), K12 (``k12_bf16_2x512``),
     K6 (``k6_bf16_1000``, ``k6_bf16_100``), K11 on a dense gradient and on
-    res5's stride-2 one (``k11_bf16_2x512``, ``k11_bf16_2x512_s2``),
+    res5's stride-2 one (``k11_bf16_2x512``, ``k11_bf16_2x512_s2``), K5 on
+    phase 2's inputs (``k5_bf16_1000``, ``k5_bf16_100``, ``k5_f32_1000``),
     the align ``predict_step`` at batch 1, 832x1344 bf16 (``predict_b1``,
     with its device time by kernel family) and the align train step
     (``align_step_b2``; its output is the first step's losses) of this
@@ -2180,9 +2289,9 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--against", metavar="OTHER_CHECKOUT",
                     help="time K1, K2, K4, K7, K13, K10, the target "
-                    "creators, decode, K12, K6, K11, the align predict step "
-                    "and the align train step against another checkout's "
-                    "instead of the smoke")
+                    "creators, decode, K12, K6, K11, K5, the align predict "
+                    "step and the align train step against another "
+                    "checkout's instead of the smoke")
     ap.add_argument("--ab-worker", nargs=3, help=argparse.SUPPRESS)
     a = ap.parse_args(argv)
     if a.ab_worker:

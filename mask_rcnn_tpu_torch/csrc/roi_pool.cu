@@ -11,25 +11,24 @@
 // The JAX package wrote K5 as two einsums over one-hot interpolation
 // matrices and K6 as static loops of gathers and jnp.maximum, so that the
 // TPU's matrix and vector units do the work; on Hopper both are gathers.
-// All four run one block per (roi, output row) and channel tile. K5 keeps
-// one thread per channel, so that a warp reads 32 neighbouring channels of
-// one NHWC tap; each thread walks the row's P cells. A block per output
-// cell would mean ~0.8 M blocks of a few loads each at 1000 rois, bound by
-// block scheduling (PERF.md). K6, K11 and K12 (redesigned) give each thread
-// 16 bytes of channels (8 bf16 or 4 float32; one channel a thread where C,
-// an address or the shared memory does not allow it), compute the row's
-// bin bounds or taps once a block, and walk the row's cells in order so
-// that what several cells share is read (K6, K12) or scattered (K11, K12)
-// once: see each kernel.
+// All four run one block per (roi, output row) and channel tile, give
+// each thread 16 bytes of channels (8 bf16 or 4 float32; one channel a
+// thread where C or an address does not allow it, or K6's shared memory),
+// compute the row's taps or bin bounds once a block, and walk the row's
+// cells in order so that what several cells share is read (K5, K6, K12)
+// or scattered (K11, K12) once: see each kernel. A block per output cell
+// would mean ~0.8 M blocks of a few loads each at 1000 rois, bound by
+// block scheduling (PERF.md).
 //
 // What bounds them on an H100: memory traffic. At the slice's shapes the
 // features ((1 or 2, 52, 84, 1024) bf16, 9-18 MB) stay in the 50 MB L2;
-// K5 reads four taps per output value, K6 each column of a bin row's rows
-// once, and both write (R, 14, 14, 1024) (0.4 GB in bf16 at R = 1000),
-// which is most of their device-memory bytes. K11 and K12 read such a
-// gradient and scatter float32 atomicAdds into an (N, H, W, C) buffer that
-// stays in L2 (36 MB at the train shape); a zero gradient (3/4 of the
-// cells under res5's stride-2 1x1 convs) issues none. The sums' order
+// K5 reads two rows of each distinct column of a cell row once, K6 each
+// column of a bin row's rows once, and both write (R, 14, 14, 1024) (0.4
+// GB in bf16 at R = 1000), which is most of their device-memory bytes: K5
+// runs near the card's write floor. K11 and K12 read such a gradient and
+// scatter float32 atomicAdds into an (N, H, W, C) buffer that stays in L2
+// (36 MB at the train shape); a zero gradient (3/4 of the cells under
+// res5's stride-2 1x1 convs) issues none. The sums' order
 // follows the atomics', so their last bits vary from run to run; the
 // wrapper casts the buffer to the feature type at the end.
 //
@@ -57,31 +56,13 @@
 
 namespace {
 
-__device__ __forceinline__ float load_f(const float* p) { return __ldg(p); }
 __device__ __forceinline__ float to_float(float v) { return v; }
 __device__ __forceinline__ float to_float(__nv_bfloat16 v) {
   return __bfloat162float(v);
 }
-__device__ __forceinline__ float load_f(const __nv_bfloat16* p) {
-  return __bfloat162float(*p);
-}
 __device__ __forceinline__ void store_f(float* p, float v) { *p = v; }
 __device__ __forceinline__ void store_f(__nv_bfloat16* p, float v) {
   *p = __float2bfloat16_rn(v);
-}
-
-// Output row (roi, py) of this block and the thread's channel; the row's
-// cells (roi, py, px, c) sit at (blockIdx.x * P + px) * C + c.
-struct Row {
-  int roi, py, c;
-};
-
-__device__ __forceinline__ Row this_row(int P) {
-  Row k;
-  k.roi = blockIdx.x / P;
-  k.py = blockIdx.x % P;
-  k.c = blockIdx.y * blockDim.x + threadIdx.x;
-  return k;
 }
 
 // V channels of T as one load: 16 bytes (8 bf16 or 4 float32) when V > 1,
@@ -122,11 +103,49 @@ struct Vec {
       }
     }
   }
+
+  // unpack()'s inverse, rounding to nearest even
+  __device__ static __forceinline__ Raw pack(const float (&v)[V]) {
+    if constexpr (V == 1 && sizeof(T) == 4) {
+      return v[0];
+    } else if constexpr (V == 1) {
+      return __float2bfloat16_rn(v[0]);
+    } else if constexpr (sizeof(T) == 4) {
+      return make_float4(v[0], v[1], v[2], v[3]);
+    } else {
+      Raw r;
+      __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&r);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        h[i] = __floats2bfloat162_rn(v[2 * i], v[2 * i + 1]);
+      }
+      return r;
+    }
+  }
 };
 
 template <int V, typename T>
 __device__ __forceinline__ void load_vec(const T* p, float (&v)[V]) {
   Vec<T, V>::unpack(Vec<T, V>::load(p), v);
+}
+
+// K5's and K6's pooled tensors (0.4 GB at 1000 rois) do not fit in L2 and
+// are not read again by the kernel: streaming stores (__stcs, evict
+// first), which measured a few percent faster than plain ones for K6
+// (PERF.md).
+__device__ __forceinline__ void store_stream(float* p, float v) {
+  __stcs(p, v);
+}
+__device__ __forceinline__ void store_stream(__nv_bfloat16* p,
+                                             __nv_bfloat16 v) {
+  *p = v;
+}
+__device__ __forceinline__ void store_stream(float* p, const float4& v) {
+  __stcs(reinterpret_cast<float4*>(p), v);
+}
+__device__ __forceinline__ void store_stream(__nv_bfloat16* p,
+                                             const uint4& v) {
+  __stcs(reinterpret_cast<uint4*>(p), v);
 }
 
 // V float32 sums into the gradient buffer: float4 atomics (Hopper's vector
@@ -173,33 +192,153 @@ __device__ __forceinline__ Tap crop_tap(float box_lo, float box_hi,
   return t;
 }
 
-template <typename T>
-__global__ void crop_resize_fwd_kernel(const T* __restrict__ feats,
-                                       const float* __restrict__ rois,
-                                       const int* __restrict__ idx,
-                                       T* __restrict__ out, int N, int H,
-                                       int W, int C, int P, float scale) {
-  const Row k = this_row(P);
-  if (k.c >= C) return;
-  const float* box = rois + (size_t)k.roi * 4;
-  const int n = idx[k.roi];
-  T* o = out + (size_t)blockIdx.x * P * C + k.c;
-  if (n < 0 || n >= N) {  // a roi of another image's index pools zeros
-    for (int px = 0; px < P; ++px) store_f(o + (size_t)px * C, 0.0f);
+// K5 (redesigned). One block per (roi, py) row of cells and channel tile;
+// a thread owns V adjacent channels (16 bytes: 8 bf16 or 4 float32) and
+// writes each of the row's P cells as one 16-byte streaming store,
+// coalesced across the warp. The row's P x taps are computed once per
+// block into shared memory (crop_tap, as K11), the y tap once per thread.
+// Every cell of the row reads the same two feature rows (ty.low, ty.high)
+// at its two columns tx.low and tx.high = tx.low + 1 (tx.low at the
+// border), and blends y first, then x: the plain version's einsum order,
+// in _rn arithmetic so that nvcc contracts nothing. A column's y-blend
+// ty.hw * f[low row] + ty.lw * f[high row] is then a pure function of the
+// column, and the thread keeps the two open columns' y-blends in
+// registers: tx.low never decreases as px grows, so a column is loaded
+// (one 16-byte load a row) only when a cell first reaches it, and reusing
+// it is exact. kCropCells cells' new columns are loaded at a time before
+// any blend. At the border a tap's two weights land on one column or row
+// and add up as the one-hot matrix's do (hw + lw), and that column or row
+// is read once. A roi whose index is outside [0, N) writes zeros through
+// the same stores. What bounds it on an H100: its stores. At 1000 rois it
+// writes the 0.4 GB output within ~15% of the time that the card takes to
+// fill the same tensor (torch's zero_(), the write floor) and of its own
+// stores alone (every index out of range: no reads); its ~0.55 GB of tap
+// reads from L2 hide under them (chip_smoke.py times all three; PERF.md).
+// Four cells in flight (128 registers) or a row's cells split over two or
+// four thread groups measured slower.
+constexpr int kCropCells = 2;
+
+template <typename T, int V>
+__global__ void __launch_bounds__(128)
+crop_resize_fwd_kernel(const T* __restrict__ feats,
+                       const float* __restrict__ rois,
+                       const int* __restrict__ idx, T* __restrict__ out,
+                       int N, int H, int W, int C, int P, float scale) {
+  using VT = Vec<T, V>;
+  using Raw = typename VT::Raw;
+  extern __shared__ Tap s_tx[];  // P taps
+  const int threads = blockDim.x, tid = threadIdx.x;
+  const int roi = blockIdx.x / P, py = blockIdx.x % P;
+  const int n = idx[roi];
+  const bool live = n >= 0 && n < N;  // another image's index pools zeros
+  const float* box = rois + (size_t)roi * 4;
+  if (live) {
+    for (int p = tid; p < P; p += threads) {
+      s_tx[p] = crop_tap(box[1], box[3], scale, p, P, W);
+    }
+  }
+  __syncthreads();
+  const int c0 = (blockIdx.y * threads + tid) * V;
+  if (c0 >= C) return;
+
+  T* o = out + (size_t)blockIdx.x * P * C + c0;
+  if (!live) {
+    float z[V];
+#pragma unroll
+    for (int j = 0; j < V; ++j) z[j] = 0.0f;
+    const Raw r = VT::pack(z);
+    for (int px = 0; px < P; ++px) store_stream(o + (size_t)px * C, r);
     return;
   }
-  const Tap ty = crop_tap(box[0], box[2], scale, k.py, P, H);
-  const T* f = feats + (size_t)n * H * W * C + k.c;
+  const Tap ty = crop_tap(box[0], box[2], scale, py, P, H);
+  const bool two_rows = ty.high != ty.low;
+  const float wl = two_rows ? ty.hw : __fadd_rn(ty.hw, ty.lw);
+  const T* f = feats + (size_t)n * H * W * C + c0;
   const T* rl = f + (size_t)ty.low * W * C;
   const T* rh = f + (size_t)ty.high * W * C;
-  for (int px = 0; px < P; ++px) {
-    const Tap tx = crop_tap(box[1], box[3], scale, px, P, W);
-    const size_t xl = (size_t)tx.low * C, xh = (size_t)tx.high * C;
-    // y first, then x: the plain version's einsum order
-    const float acc =
-        tx.hw * (ty.hw * load_f(rl + xl) + ty.lw * load_f(rh + xl)) +
-        tx.lw * (ty.hw * load_f(rl + xh) + ty.lw * load_f(rh + xh));
-    store_f(o + (size_t)px * C, acc);
+  // the y-blend of a column from its rows' raw loads (`hi` unread when
+  // the tap has one row)
+  const auto blend = [&](const Raw& lo, const Raw& hi, float (&col)[V]) {
+    VT::unpack(lo, col);
+#pragma unroll
+    for (int j = 0; j < V; ++j) col[j] = __fmul_rn(wl, col[j]);
+    if (two_rows) {
+      float b[V];
+      VT::unpack(hi, b);
+#pragma unroll
+      for (int j = 0; j < V; ++j) {
+        col[j] = __fadd_rn(col[j], __fmul_rn(ty.lw, b[j]));
+      }
+    }
+  };
+
+  float ca[V], cb[V];  // the y-blends of the open columns xa and xb
+  int xa = -1, xb = -1;  // xb is xa or xa + 1
+  for (int p0 = 0; p0 < P; p0 += kCropCells) {
+    // A cell's columns (l, h) are new unless the previous cell opened them:
+    // l new unless it is that cell's l or h, h new unless it is l or that
+    // cell's h. Each new column's rows: raw[u][0..1] for l, [2..3] for h.
+    Raw raw[kCropCells][4];
+    int pa = xa, pb = xb;
+#pragma unroll
+    for (int u = 0; u < kCropCells; ++u) {
+      if (p0 + u < P) {
+        const Tap tx = s_tx[p0 + u];
+        if (tx.low != pa && tx.low != pb) {
+          raw[u][0] = VT::load(rl + (size_t)tx.low * C);
+          if (two_rows) raw[u][1] = VT::load(rh + (size_t)tx.low * C);
+        }
+        if (tx.high != tx.low && tx.high != pb) {
+          raw[u][2] = VT::load(rl + (size_t)tx.high * C);
+          if (two_rows) raw[u][3] = VT::load(rh + (size_t)tx.high * C);
+        }
+        pa = tx.low;
+        pb = tx.high;
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < kCropCells; ++u) {
+      if (p0 + u >= P) break;
+      const Tap tx = s_tx[p0 + u];
+      float na[V], nb[V];
+      if (tx.low == xa) {
+#pragma unroll
+        for (int j = 0; j < V; ++j) na[j] = ca[j];
+      } else if (tx.low == xb) {
+#pragma unroll
+        for (int j = 0; j < V; ++j) na[j] = cb[j];
+      } else {
+        blend(raw[u][0], raw[u][1], na);
+      }
+      if (tx.high == tx.low) {
+#pragma unroll
+        for (int j = 0; j < V; ++j) nb[j] = na[j];
+      } else if (tx.high == xb) {
+#pragma unroll
+        for (int j = 0; j < V; ++j) nb[j] = cb[j];
+      } else {
+        blend(raw[u][2], raw[u][3], nb);
+      }
+      xa = tx.low;
+      xb = tx.high;
+      float v[V];
+      if (tx.high == tx.low) {
+        const float w = __fadd_rn(tx.hw, tx.lw);
+#pragma unroll
+        for (int j = 0; j < V; ++j) v[j] = __fmul_rn(w, na[j]);
+      } else {
+#pragma unroll
+        for (int j = 0; j < V; ++j) {
+          v[j] = __fadd_rn(__fmul_rn(tx.hw, na[j]), __fmul_rn(tx.lw, nb[j]));
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < V; ++j) {
+        ca[j] = na[j];
+        cb[j] = nb[j];
+      }
+      store_stream(o + (size_t)(p0 + u) * C, VT::pack(v));
+    }
   }
 }
 
@@ -399,24 +538,6 @@ __device__ __forceinline__ void finite_or_zero(uint4& a) {
     w[i] = bf16_finite_or_zero(w[i] & 0xFFFFu) |
            (bf16_finite_or_zero(w[i] >> 16) << 16);
   }
-}
-
-// The pooled tensor (0.4 GB at 1000 rois) does not fit in L2 and is not
-// read again by this kernel: streaming stores (__stcs, evict first), which
-// measured a few percent faster than plain ones (PERF.md).
-__device__ __forceinline__ void store_stream(float* p, float v) {
-  __stcs(p, v);
-}
-__device__ __forceinline__ void store_stream(__nv_bfloat16* p,
-                                             __nv_bfloat16 v) {
-  *p = v;
-}
-__device__ __forceinline__ void store_stream(float* p, const float4& v) {
-  __stcs(reinterpret_cast<float4*>(p), v);
-}
-__device__ __forceinline__ void store_stream(__nv_bfloat16* p,
-                                             const uint4& v) {
-  __stcs(reinterpret_cast<uint4*>(p), v);
 }
 
 // K6 (redesigned). One block per (roi, py) row of bins and channel tile; a
@@ -743,8 +864,6 @@ roi_pool_bwd_kernel(const T* __restrict__ grad_out,
   flush(lo, hi);
 }
 
-int threads_for(int C) { return C >= 256 ? 256 : ((C + 31) / 32) * 32; }
-
 // Threads a block for `groups` channel groups: up to 128, whole warps.
 int vec_threads(int groups) {
   return groups >= 128 ? 128 : ((groups + 31) / 32) * 32;
@@ -759,28 +878,41 @@ int vec_threads(int groups) {
 // by the caller and accumulated into. Each returns a cudaError_t (0 on
 // success).
 
-#define MRCNN_DISPATCH(KERNEL, ...)                                         \
-  if (N * R == 0 || C == 0) return 0;                                       \
-  const int threads = threads_for(C);                                       \
-  const dim3 grid(R * P, (C + threads - 1) / threads);                      \
-  cudaStream_t s = (cudaStream_t)stream;                                    \
-  if (dtype == 0) {                                                         \
-    using T = float;                                                        \
-    KERNEL<T><<<grid, threads, 0, s>>>(__VA_ARGS__);                        \
-  } else if (dtype == 1) {                                                  \
-    using T = __nv_bfloat16;                                                \
-    KERNEL<T><<<grid, threads, 0, s>>>(__VA_ARGS__);                        \
-  } else {                                                                  \
-    return (int)cudaErrorInvalidValue;                                      \
-  }                                                                         \
+template <typename T, int V>
+int launch_crop_resize_fwd(const void* feats, const float* rois,
+                           const int* idx, void* out, int N, int R, int H,
+                           int W, int C, int P, float scale, cudaStream_t s) {
+  const int groups = C / V;
+  const int threads = vec_threads(groups);
+  const dim3 grid(R * P, (groups + threads - 1) / threads);
+  crop_resize_fwd_kernel<T, V><<<grid, threads, P * sizeof(Tap), s>>>(
+      (const T*)feats, rois, idx, (T*)out, N, H, W, C, P, scale);
   return (int)cudaGetLastError();
+}
 
+// K5: the vector form (V = 8 bf16 or 4 float32 channels a thread) when C is
+// a multiple of V and feats and out start on 16-byte boundaries, else one
+// channel a thread. With N = 0 every roi's index is out of range: zeros.
 extern "C" int mrcnn_crop_resize_fwd(const void* feats, const float* rois,
                                      const int* idx, void* out, int dtype,
                                      int N, int R, int H, int W, int C, int P,
                                      float scale, void* stream) {
-  MRCNN_DISPATCH(crop_resize_fwd_kernel, (const T*)feats, rois, idx, (T*)out,
-                 N, H, W, C, P, scale)
+  if (R == 0 || C == 0) return 0;
+  const bool aligned = ((uintptr_t)feats | (uintptr_t)out) % 16 == 0;
+  cudaStream_t s = (cudaStream_t)stream;
+  const auto args = [&](auto launch) {
+    return launch(feats, rois, idx, out, N, R, H, W, C, P, scale, s);
+  };
+  if (dtype == 0) {
+    return aligned && C % 4 == 0 ? args(launch_crop_resize_fwd<float, 4>)
+                                 : args(launch_crop_resize_fwd<float, 1>);
+  }
+  if (dtype == 1) {
+    return aligned && C % 8 == 0
+               ? args(launch_crop_resize_fwd<__nv_bfloat16, 8>)
+               : args(launch_crop_resize_fwd<__nv_bfloat16, 1>);
+  }
+  return (int)cudaErrorInvalidValue;
 }
 
 // K11: the vector form (V = 8 bf16 or 4 float32 channels a thread) when C

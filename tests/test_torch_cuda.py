@@ -619,6 +619,87 @@ def test_crop_and_resize_backward_kernel_edge_cases(dev, dtype, c, p):
                                        atol=1e-5 * want.abs().max().item())
 
 
+@pytest.mark.parametrize("p", [14, 7, 2])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("c", [1024, 72, 70])
+def test_crop_and_resize_kernel_edge_cases(dev, dtype, c, p):
+    """K5 at the 1344x832 bucket's features on the rois of
+    :func:`pool_edge_rois` (crops narrower than the output and one column
+    or row wide, border taps with low == high, out-of-range indices, which
+    pool zeros). C = 1024 takes the 16-byte vector form; 72 is a multiple
+    of 4 but not of 8 (float32 vectors, bf16 one channel a thread); 70
+    neither; misaligned features, and a misaligned output (through the
+    entry point, as the wrapper allocates its own), take the one-channel
+    form. Every form does the same arithmetic: identical outputs."""
+    rng = np.random.RandomState(16)
+    n, h, w, r = 2, 84, 52, 40
+    f = torch.from_numpy(rng.randn(n, h, w, c).astype(np.float32)).to(
+        dev, dtype)
+    rois, idx = pool_edge_rois(rng, n, h, w, r)
+    rd, i = rois.to(dev), idx.to(dev)
+    want = roi_align.crop_and_resize_plain(f.float(), rd, i, p, 1 / 16)
+    outs = [roi_align.crop_and_resize(fk, rd, i, p, 1 / 16)
+            for fk in (f, misaligned(f))]
+    out = misaligned(torch.full((r, p, p, c), float("nan"), dtype=dtype,
+                                device=dev))
+    roi_align._launch_flat("mrcnn_crop_resize_fwd",
+                           (f.data_ptr(), rd.data_ptr(), i.data_ptr(),
+                            out.data_ptr()),
+                           dtype, (n, h, w), r, c, p, 1 / 16, dev)
+    outs.append(out)
+    # float32: summation order; bf16: one rounding of the float32 result
+    rtol = 2.0 ** -8 if dtype == torch.bfloat16 else 1e-5
+    for got in outs:
+        assert got.dtype == dtype and got.shape == (r, p, p, c)
+        torch.testing.assert_close(got.float(), want, rtol=rtol, atol=1e-5)
+        assert torch.equal(got, outs[0])
+        assert not got[9:11].any()  # indices -1 and n
+
+
+@pytest.mark.parametrize("c", [1024, 70])
+def test_crop_and_resize_kernel_without_images_gives_zeros(dev, c):
+    """With no image (N = 0) every roi's index is out of range: K5 writes
+    zeros, as the plain version gives, not an uninitialised output."""
+    f = torch.empty((0, 6, 5, c), dtype=torch.bfloat16, device=dev)
+    rois = torch.tensor([[0, 0, 32, 32], [8, 8, 40, 60]],
+                        dtype=torch.float32, device=dev)
+    idx = torch.zeros(2, dtype=torch.int32, device=dev)
+    got = roi_align.crop_and_resize(f, rois, idx, 7, 1 / 16)
+    want = roi_align.crop_and_resize_plain(f.float(), rois, idx, 7, 1 / 16)
+    assert got.shape == want.shape == (2, 7, 7, c)
+    assert not want.any() and torch.equal(got, torch.zeros_like(got))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("c", [1024, 70])
+def test_crop_and_resize_kernel_reuses_columns_exactly(dev, dtype, c):
+    """K5 reuses a column's y-blend across the cells that reach it. A roi
+    whose crop is one column wide puts every cell on that column (tap
+    weights 1 and 0), so every cell after the first reuses it; one whose
+    crop is P columns wide puts cell px on column x0 + px, so each cell
+    reuses the previous cell's high column as its low one. Both start at
+    column x0: every cell of the first equals cell 0 of the second bit for
+    bit, and both agree with the plain version. Rows: upsampled, one row
+    tall, past the far border (low == high), downsampled; x0 = w - 1 puts
+    both crops on the border column."""
+    rng = np.random.RandomState(17)
+    n, h, w, p = 1, 52, 84, 14
+    f = torch.from_numpy(rng.randn(n, h, w, c).astype(np.float32)).to(
+        dev, dtype)
+    rois = [[y1, x0 * 16, y2, (x0 + k) * 16]
+            for y1, y2 in ((40, 200), (100, 108), (600, 1000), (16, 800))
+            for x0 in (0, 33, 60, w - 1) for k in (1, p)]
+    rd = torch.tensor(rois, dtype=torch.float32, device=dev)
+    i = torch.zeros(len(rois), dtype=torch.int32, device=dev)
+    got = roi_align.crop_and_resize(f, rd, i, p, 1 / 16)
+    want = roi_align.crop_and_resize_plain(f.float(), rd, i, p, 1 / 16)
+    rtol = 2.0 ** -8 if dtype == torch.bfloat16 else 1e-5
+    torch.testing.assert_close(got.float(), want, rtol=rtol, atol=1e-5)
+    one, wide = got[0::2], got[1::2]
+    assert torch.equal(one, wide[:, :, :1].expand_as(one))
+    assert not torch.equal(wide[:, :, 1], wide[:, :, 0])
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("out_size", [14, 7])
 def test_crop_and_resize_kernels_match_plain(dev, dtype, out_size):

@@ -75,6 +75,48 @@ def test_crop_and_resize_matches_jax(out_size):
 
 
 @pytest.mark.parametrize("dtype", [np.float32, jnp.bfloat16])
+@pytest.mark.parametrize("out_size", [14, 7])
+def test_crop_and_resize_edge_contract_matches_jax(out_size, dtype):
+    """Rois whose image index is out of range (-1 and N) pool exact zeros,
+    in the JAX function and in the plain version, float32 and bf16. In bf16
+    the plain version computes in float32 and rounds once: within one bf16
+    rounding (2^-8 relative, the kernels' tolerance) of the JAX function in
+    float32 on the same bf16 features. The JAX function in bf16 rounds the
+    interpolation weights and the y-blend to bf16 before the x-blend: four
+    roundings of at most 2^-9 of values up to max|f| apart from the plain
+    result, so 2^-7 max|f| (0.029 here; 0.0156 measured at both sizes)."""
+    rng = np.random.RandomState(3)
+    feats = np.asarray(jnp.asarray(rng.randn(N, H, W, C).astype(np.float32),
+                                   dtype))
+    f32 = np.array(feats, np.float32)
+    rois, idx = edge_rois(rng)
+    out_of_range = [1, 7]
+    idx[out_of_range] = [-1, N]
+    want = np.asarray(jax_crop_and_resize(feats, rois, idx, out_size, 1 / 16),
+                      np.float32)
+    want32 = np.asarray(jax_crop_and_resize(f32, rois, idx, out_size,
+                                            1 / 16))
+    tdtype = torch.float32 if dtype == np.float32 else torch.bfloat16
+    r, i = torch_args(rois, idx)
+    got = roi_align.crop_and_resize_plain(torch.from_numpy(f32).to(tdtype),
+                                          r, i, out_size, 1 / 16)
+    assert got.dtype == tdtype
+    got = got.float().numpy()
+    for out in (want, want32, got):
+        assert not out[out_of_range].any()
+    live = np.ones(len(rois), bool)
+    live[out_of_range] = False
+    assert np.abs(want32[live]).max() > 1.0
+    if dtype == np.float32:
+        np.testing.assert_allclose(got, want, rtol=0, atol=1e-5)
+        return
+    np.testing.assert_allclose(got, want32, rtol=2.0 ** -8, atol=1e-5)
+    assert not np.array_equal(got, want)  # the seam is there
+    np.testing.assert_allclose(got, want, rtol=0,
+                               atol=2.0 ** -7 * np.abs(f32).max())
+
+
+@pytest.mark.parametrize("dtype", [np.float32, jnp.bfloat16])
 @pytest.mark.parametrize("out_size", [7, 14, 2])
 def test_roi_pool_matches_jax_exactly(out_size, dtype):
     rng = np.random.RandomState(1)
