@@ -67,12 +67,26 @@ GPU.
    every 4 steps; run A stops at step 4, run B resumes from its checkpoint
    (restored bit for bit) to step 8; checks the artifacts, finite losses
    and that K10, K1, K2, K3 (``decode_select``), K7, K9a and K9b were
-   launched.
+   launched;
+8. entry points from disk, at the same configuration in a temporary
+   directory: a seeded Detectron pkl of the COCO shapes, the bridge npz of
+   its tree and its chainer snapshot give identical params and
+   bit-identical bf16 predictions; 'auto' (through
+   $MASK_RCNN_TPU_IMAGENET_NPZ) gives the params of 'imagenet:<npz>' on a
+   seeded chainer ImageNet npz; the COCO train driver
+   (``mask_rcnn_tpu_torch.examples.coco.train.main``) runs 8 steps at its
+   defaults (batch 1, float32, ``--pretrained-model auto``) with one
+   evaluation on the port's synthetic PNG root (480x640), and the evaluate
+   driver rebuilds the model from the log dir and prints its COCO numbers;
+   with a JPEG codec (cv2 or PIL) the VOC/SBD drivers run too, on the
+   port's SBD root; checks finite losses, the log dirs and that K10, K1,
+   K2, K3, K7, K9a and K9b were launched; prints import seconds per spec,
+   driver ms per step, evaluation s per image and the JPEG decoder found.
 
 Prints the card's name and power limit, each path's times, one JSON line
 of kernel results (``launches`` over every main-path run above,
 ``launches_main`` over the default configuration's: the ``align`` serving
-and train runs and the train loop), and as its last line
+and train runs, the train loop and the entry points), and as its last line
 ``{"ok": true, "device": {...}}``.
 Exits non-zero, and prints no result, when a phase fails or no CUDA device
 is present.
@@ -1715,19 +1729,36 @@ def drive_flat_head(torch, kernels):
     return counts, ms
 
 
-class TimedEvaluator:
-    """An evaluator that records its wall seconds per call (synchronised)."""
+class EvalSeconds:
+    """Records the synchronised wall seconds of every
+    ``InstanceSegmentationEvaluator`` call made while it is entered (the
+    drivers build their evaluators themselves)."""
 
-    def __init__(self, torch, evaluator):
-        self.torch, self.evaluator, self.seconds = torch, evaluator, []
+    def __init__(self, torch):
+        self.torch, self.seconds = torch, []
 
-    def __call__(self, model):
-        self.torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        report = self.evaluator(model)
-        self.torch.cuda.synchronize()
-        self.seconds.append(time.perf_counter() - t0)
-        return report
+    def __enter__(self):
+        from mask_rcnn_tpu_torch.engine import evaluator
+
+        cls = evaluator.InstanceSegmentationEvaluator
+        orig, torch, seconds = cls.__call__, self.torch, self.seconds
+        self.orig = orig
+
+        def timed(ev, model):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            report = orig(ev, model)
+            torch.cuda.synchronize()
+            seconds.append(time.perf_counter() - t0)
+            return report
+
+        cls.__call__ = timed
+        return self
+
+    def __exit__(self, *exc):
+        from mask_rcnn_tpu_torch.engine import evaluator
+
+        evaluator.InstanceSegmentationEvaluator.__call__ = self.orig
 
 
 LOOP_HW = (480, 640)  # the train loop's images, before resizing
@@ -1811,16 +1842,17 @@ def drive_train_loop(torch, kernels):
             lo, hi, cfg.mean, train=True, rng=np.random.RandomState(SEED)),
             batch_size=2, max_boxes=8, min_size=lo, max_size=hi, seed=SEED)
 
-    ev = TimedEvaluator(torch, InstanceSegmentationEvaluator(
-        val_ds, val_ds.class_names, kind="coco", batch_size=2))
-    kw = dict(max_epoch=1.0, evaluator=ev, eval_interval_epochs=0.5,
+    evaluator = InstanceSegmentationEvaluator(
+        val_ds, val_ds.class_names, kind="coco", batch_size=2)
+    kw = dict(max_epoch=1.0, evaluator=evaluator, eval_interval_epochs=0.5,
               log_interval=4, checkpoint_interval_steps=4, seed=SEED,
               device=dev)
     assert loader().steps_per_epoch() == 8
     assert loader().position_for_step(4) == (0, 4)
     for wrapper in kernels:
         wrapper.launches = 0
-    with tempfile.TemporaryDirectory(prefix="mrcnn_train_") as tmp:
+    with EvalSeconds(torch) as ev, \
+            tempfile.TemporaryDirectory(prefix="mrcnn_train_") as tmp:
         run_a, run_b = os.path.join(tmp, "a"), os.path.join(tmp, "b")
         t0 = time.perf_counter()
         res_a = train(cfg, loader(), run_a, stop_at_step=4, **kw)
@@ -1889,6 +1921,220 @@ def drive_train_loop(torch, kernels):
                     "loop_ms_per_step_b2_first4": ms_a,
                     "eval_s_per_img": eval_s_img,
                     "map": [e["validation/main/map"] for e in reports]}
+
+
+ENTRY_SIZES = (800, 1333)  # the COCO drivers' min_size / max_size
+COCO_ROOT_HW = (480, 640)  # the synthetic COCO root's images
+SBD_ROOT_HW = (375, 500)  # the synthetic SBD root's images (VOC's shape)
+
+
+def construct(torch, spec, **kw):
+    """``MaskRCNNResNet(pretrained_model=spec)`` at R-50-C4 COCO bf16 on the
+    card; returns the model and its construction seconds (import
+    included)."""
+    from mask_rcnn_tpu_torch import MaskRCNNResNet
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    model = MaskRCNNResNet(
+        n_layers=50, n_fg_class=N_CLASS_FG, min_size=ENTRY_SIZES[0],
+        max_size=ENTRY_SIZES[1], anchor_scales=(2, 4, 8, 16, 32),
+        compute_dtype="bfloat16", pretrained_model=spec, device="cuda", **kw)
+    torch.cuda.synchronize()
+    return model, time.perf_counter() - t0
+
+
+def same_params(torch, a, b):
+    from mask_rcnn_tpu_torch.utils.checkpoint import flatten_params
+
+    fa, fb = flatten_params(a), flatten_params(b)
+    return set(fa) == set(fb) and all(torch.equal(fa[k], fb[k]) for k in fa)
+
+
+def drive_dataset_drivers(torch, train_mod, evaluate_mod, argv, n_eval):
+    """One dataset's train driver, then its evaluate driver on the log dir
+    the first wrote; checks the artifacts and the losses. Returns the
+    train result, the evaluate report and their times."""
+    with EvalSeconds(torch) as ev:
+        t0 = time.perf_counter()
+        result = train_mod.main(argv)
+        torch.cuda.synchronize()
+        t_train = time.perf_counter() - t0
+        out = result["log_dir"]
+        for name in ("params.yaml", "log", "snapshot_model.npz"):
+            assert os.path.exists(os.path.join(out, name)), name
+        entries = read_log(out)
+        losses = [e for e in entries if "main/loss" in e]
+        assert losses, entries
+        for e in losses:
+            for k, v in e.items():
+                if k.startswith("main/"):
+                    assert np.isfinite(v), f"{k} at {e['iteration']}: {v}"
+        assert [e for e in entries if "validation/main/map" in e], entries
+        n_train_evals = len(ev.seconds)
+        report = evaluate_mod.main([out, "--device", "cuda"])
+        assert "validation/main/map" in report, report
+        assert os.path.exists(os.path.join(
+            out, "snapshot_model.npz.eval_result.yaml"))
+    steps = result["iterations"]
+    return result, report, {
+        "ms_per_step_b1": (result["elapsed"] - sum(
+            ev.seconds[:n_train_evals])) * 1e3 / steps,
+        "steps": steps,
+        "train_wall_s": t_train,
+        "eval_s_per_img": [t / n_eval for t in ev.seconds],
+        "losses": {k: v for k, v in losses[-1].items()
+                   if k.startswith("main/")},
+    }
+
+
+def drive_entry_points(torch, kernels):
+    """Phase 8: the entry points from disk at full width (R-50-C4, 80
+    classes, anchor scales (2, 4, 8, 16, 32), min 800 / max 1333), in a
+    temporary directory. (a) A seeded Detectron pkl of the COCO shapes,
+    the bridge npz of the same tree and the chainer snapshot of it
+    (``export_chainer_npz``) give three models whose bf16 predictions on
+    the same images are bit-identical. (b) A seeded chainer ImageNet R-50
+    npz: 'auto' (through $MASK_RCNN_TPU_IMAGENET_NPZ) gives the same
+    params as 'imagenet:<npz>'. (c) The COCO train driver
+    (``examples.coco.train.main``) at its defaults, batch 1, float32,
+    ``--pretrained-model auto``, 8 steps and one evaluation on the port's
+    synthetic 480x640 PNG root, then the evaluate driver on its log dir;
+    (d) the VOC/SBD drivers the same way on the port's SBD root when a
+    JPEG codec is present. Returns the launch counts of the phase and its
+    numbers."""
+    import tempfile
+
+    from mask_rcnn_tpu_torch.data import _image
+    from mask_rcnn_tpu_torch.data.synthetic import (
+        make_synthetic_coco_root,
+        make_synthetic_sbd_root,
+    )
+    from mask_rcnn_tpu_torch.examples.coco import evaluate as coco_evaluate
+    from mask_rcnn_tpu_torch.examples.coco import train as coco_train
+    from mask_rcnn_tpu_torch.examples.voc import evaluate as voc_evaluate
+    from mask_rcnn_tpu_torch.examples.voc import train as voc_train
+    from mask_rcnn_tpu_torch.utils.checkpoint import (
+        params_to_numpy,
+        save_params,
+        unflatten_params,
+    )
+    from mask_rcnn_tpu_torch.utils.detectron_import import (
+        export_chainer_npz,
+    )
+    from tests.torch_import_cases import (
+        write_detectron_pkl,
+        write_imagenet_npz,
+    )
+
+    rng = np.random.RandomState(SEED + 11)
+    imgs = [rng.uniform(0, 255, (3, 640, 1066)).astype(np.float32)]
+    numbers = {"import_s": {}}
+    env_keys = ("MASK_RCNN_TPU_IMAGENET_NPZ", "COCO_ROOT", "SBD_ROOT")
+    env_before = {k: os.environ.get(k) for k in env_keys}
+    for wrapper in kernels:
+        wrapper.launches = 0
+    try:
+        with tempfile.TemporaryDirectory(prefix="mrcnn_entry_") as tmp:
+            # (a) Detectron pkl, bridge npz, chainer snapshot
+            pkl = os.path.join(tmp, "model_final.pkl")
+            write_detectron_pkl(pkl, n_fg=N_CLASS_FG, n_anchor=15, seed=SEED)
+            models = {}
+            models["detectron_pkl"], t = construct(torch, pkl)
+            numbers["import_s"]["detectron_pkl"] = t
+            base = models["detectron_pkl"].params
+            npz = os.path.join(tmp, "bridge.npz")
+            save_params(npz, base)
+            models["bridge_npz"], t = construct(torch, npz)
+            numbers["import_s"]["bridge_npz"] = t
+            snap = os.path.join(tmp, "snapshot_model.npz")
+            export_chainer_npz(unflatten_params(params_to_numpy(base)), snap)
+            models["chainer"], t = construct(torch, f"chainer:{snap}")
+            numbers["import_s"]["chainer"] = t
+            outs = {}
+            for name, model in models.items():
+                assert same_params(torch, model.params, base), name
+                model.score_thresh = 0.0  # 100 detections to compare
+                outs[name] = model.predict(imgs)
+                check_outputs(imgs, *outs[name])
+            ref = outs["detectron_pkl"]
+            for name, out in outs.items():
+                for a, b in zip(ref, out):
+                    for x, y in zip(a, b):
+                        assert x.shape == y.shape and np.array_equal(x, y), \
+                            f"{name} predicts otherwise than detectron_pkl"
+            print(f"entry points (a): Detectron pkl, bridge npz and chainer "
+                  f"snapshot models: identical params, bit-identical bf16 "
+                  f"predictions at 832x1344 "
+                  f"({len(ref[0][0])} detections at score_thresh 0)")
+            del models, outs, ref, base
+
+            # (b) ImageNet npz: 'auto' through the environment variable
+            imagenet = os.path.join(tmp, "ResNet-50-model.npz")
+            write_imagenet_npz(imagenet, seed=SEED)
+            os.environ["MASK_RCNN_TPU_IMAGENET_NPZ"] = imagenet
+            auto, t = construct(torch, "auto", rng_seed=SEED)
+            numbers["import_s"]["auto"] = t
+            explicit, t = construct(torch, f"imagenet:{imagenet}",
+                                    rng_seed=SEED)
+            numbers["import_s"]["imagenet"] = t
+            assert same_params(torch, auto.params, explicit.params)
+            print("entry points (b): 'auto' ($MASK_RCNN_TPU_IMAGENET_NPZ) "
+                  "gives the params of 'imagenet:<npz>'")
+            del auto, explicit
+
+            # (c) the COCO drivers on a PNG root
+            root = make_synthetic_coco_root(
+                os.path.join(tmp, "coco"), n_train=8, n_valminusminival=2,
+                n_minival=4, height=COCO_ROOT_HW[0], width=COCO_ROOT_HW[1],
+                seed=SEED)
+            os.environ["COCO_ROOT"] = root
+            result, report, coco = drive_dataset_drivers(
+                torch, coco_train, coco_evaluate,
+                ["--pretrained-model", "auto", "--max-epoch", "0.8",
+                 "--eval-interval-epochs", "0.8", "--logs-dir",
+                 os.path.join(tmp, "logs"), "--device", "cuda"], n_eval=4)
+            assert result["iterations"] == 8, result
+            coco["report"] = report
+            numbers["coco"] = coco
+
+            # (d) the VOC/SBD drivers, which need a JPEG codec
+            numbers["jpeg_decoder"] = _image.jpeg_decoder()
+            if numbers["jpeg_decoder"] is None:
+                print("entry points (d): no JPEG codec (neither cv2 nor PIL) "
+                      "on this machine: the SBD/VOC drivers were not driven")
+                numbers["sbd"] = None
+            else:
+                root = make_synthetic_sbd_root(
+                    os.path.join(tmp, "sbd"), n_train=4, n_val=2,
+                    height=SBD_ROOT_HW[0], width=SBD_ROOT_HW[1], seed=SEED)
+                os.environ["SBD_ROOT"] = root
+                _, report, sbd = drive_dataset_drivers(
+                    torch, voc_train, voc_evaluate,
+                    ["--max-epoch", "1", "--logs-dir",
+                     os.path.join(tmp, "logs_sbd"), "--device", "cuda"],
+                    n_eval=2)
+                sbd["report"] = report
+                numbers["sbd"] = sbd
+        torch.cuda.synchronize()
+        counts = {w.__name__: w.launches for w in kernels}
+    finally:
+        for k, v in env_before.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    require_launched(counts, "entry points from disk (pkl, npz, chainer, "
+                     "auto, COCO train and evaluate drivers)")
+    print("entry points, R-50-C4 COCO: import s per spec "
+          f"{ {k: round(v, 3) for k, v in numbers['import_s'].items()} }; "
+          f"COCO train driver {numbers['coco']['ms_per_step_b1']:.3f} "
+          f"ms/step (batch 1, float32, 8 steps at 800x1067, evaluation "
+          f"excluded), evaluation "
+          f"{[round(x, 4) for x in numbers['coco']['eval_s_per_img']]} "
+          f"s/img (4 minival images: in training, then the evaluate "
+          f"driver); JPEG decoder {numbers['jpeg_decoder']}")
+    return counts, numbers
 
 
 def kernel_group(name):
@@ -2337,7 +2583,7 @@ def main(argv=None) -> int:
     # Each main path runs with its kernels' counts set to 0 just before it
     # and read just after; a kernel's "launches" sums its main-path runs,
     # "launches_main" those of the default configuration (pooling="align"):
-    # the align serving and train runs and the driver.
+    # the align serving and train runs, the driver and the entry points.
     pool_fwd = {"align": roi_align.roi_align_grouped,
                 "resize": roi_align.crop_and_resize,
                 "pooling": roi_align.roi_pool}
@@ -2385,6 +2631,13 @@ def main(argv=None) -> int:
                 targets.anchor_targets, targets.proposal_targets))
     count(counts, True)
     loop["launches"] = counts
+    counts, entry_points = drive_entry_points(
+        torch, (resnet.stem_forward, roi_align.roi_align_grouped,
+                nms.nms_blocked, nms.decode_select,
+                roi_align.roi_align_grouped_backward,
+                targets.anchor_targets, targets.proposal_targets))
+    count(counts, True)
+    entry_points["launches"] = counts
     for name, entry in results.items():
         # nms_small serves no main path since decode_select took the decode
         entry["launches"] = launches.get(name, 0)
@@ -2392,7 +2645,7 @@ def main(argv=None) -> int:
 
     print(json.dumps({"serving": serving, "training": training,
                       "flat_head_ms_fwd_bwd": flat_ms, "train_loop": loop,
-                      "card": smi}))
+                      "entry_points": entry_points, "card": smi}))
     order = ("roi_align_grouped", "nms_blocked", "nms_small",
              "decode_select", "roi_align_grouped_backward", "anchor_targets",
              "proposal_targets", "crop_and_resize",

@@ -12,8 +12,10 @@ of a part interval, periodic evaluation, the best-mAP ``snapshot_model.npz``
 (each step's generator is seeded from ``(seed, step)``,
 ``trainer.step_seed``).
 
-Not here yet: data parallelism (one device only), the visualization report
-and Detectron/chainer weight import.
+``pretrained_model`` takes every spec of
+``models/api.py::resolve_pretrained_params`` (ImageNet 'auto', Detectron
+pkl, chainer snapshot, bridge npz). Not here yet: data parallelism (one
+device only) and the visualization report.
 """
 
 from __future__ import annotations
@@ -33,10 +35,12 @@ from mask_rcnn_tpu_torch.engine.trainer import (
     make_optimizer,
     make_train_step,
 )
-from mask_rcnn_tpu_torch.models.api import MaskRCNNResNet
+from mask_rcnn_tpu_torch.models.api import (
+    MaskRCNNResNet,
+    resolve_pretrained_params,
+)
 from mask_rcnn_tpu_torch.models.mask_rcnn import MaskRCNNConfig, init_params
 from mask_rcnn_tpu_torch.utils.checkpoint import (
-    load_params,
     restore_train_state,
     save_params,
     save_train_state,
@@ -85,9 +89,10 @@ def train(
 
     ``batch_size_per_device`` defaults to the loader's batch; a batch that
     would need more than one device raises (data parallelism is a later
-    slice of the port). ``pretrained_model`` is an npz in the parameter
-    bridge's layout. ``resume_from`` is a ``train_state`` directory that
-    ``checkpoint_interval_steps`` wrote.
+    slice of the port). ``pretrained_model`` takes the specs of
+    ``resolve_pretrained_params`` ('auto' keeps the RPN and branch values
+    drawn from ``seed`` with ``initializer``). ``resume_from`` is a
+    ``train_state`` directory that ``checkpoint_interval_steps`` wrote.
     """
     device = torch.device(device)
     per_device = batch_size_per_device or train_loader.batch_size
@@ -117,7 +122,8 @@ def train(
     params = init_params(cfg, torch.Generator().manual_seed(seed), device,
                          initializer=initializer)
     if pretrained_model:
-        params = load_params(pretrained_model, device, like=params)
+        params = resolve_pretrained_params(pretrained_model, params, cfg,
+                                           device)
     optimizer, schedule = make_optimizer(params, base_lr, total_steps,
                                          clip_norm=clip_norm)
     step_fn = make_train_step(cfg, optimizer)

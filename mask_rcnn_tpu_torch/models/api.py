@@ -12,6 +12,8 @@ without cv2; mask pasting runs on the host. CUDA work is asynchronous, so
 from __future__ import annotations
 
 import dataclasses
+import os
+import os.path as osp
 from collections import deque
 from typing import List, Optional, Sequence, Tuple
 
@@ -26,7 +28,21 @@ from mask_rcnn_tpu_torch.models.mask_rcnn import (
     init_params,
     predict_step,
 )
-from mask_rcnn_tpu_torch.utils.checkpoint import load_params
+from mask_rcnn_tpu_torch.utils.checkpoint import (
+    conform_params,
+    flatten_params,
+    load_params,
+    params_from_numpy,
+    params_to_numpy,
+    unflatten_params,
+)
+from mask_rcnn_tpu_torch.utils.detectron_import import (
+    IMAGENET_NPZ_SOURCES,
+    import_chainer_npz,
+    import_detectron_pkl,
+    import_imagenet_npz,
+    is_chainer_snapshot,
+)
 from mask_rcnn_tpu_torch.utils.masks import paste_masks, resize_bilinear
 
 
@@ -39,6 +55,71 @@ def _upload(a: np.ndarray, device: torch.device) -> torch.Tensor:
     return t.to(device)
 
 
+def find_imagenet_npz(n_layers: int) -> str:
+    """Locate the chainer ImageNet ResNet npz the reference auto-downloads
+    (resnet_extractor.py:104-107). Search order: $MASK_RCNN_TPU_IMAGENET_NPZ,
+    the chainer dataset cache, ~/data/models. Nothing is fetched: a miss
+    raises ``FileNotFoundError`` naming the source."""
+    url, md5, fname = IMAGENET_NPZ_SOURCES[n_layers]
+    env = os.environ.get("MASK_RCNN_TPU_IMAGENET_NPZ")
+    candidates = [env] if env else []
+    candidates += [
+        osp.expanduser(f"~/.chainer/dataset/pfnet/chainer/models/{fname}"),
+        osp.expanduser(f"~/data/models/{fname}"),
+    ]
+    for c in candidates:
+        if c and osp.exists(c):
+            return c
+    raise FileNotFoundError(
+        f"ImageNet ResNet-{n_layers} weights not found (searched "
+        f"{candidates}). Fetch {url} (md5 {md5}) and place it at one of "
+        "those paths or set MASK_RCNN_TPU_IMAGENET_NPZ."
+    )
+
+
+def is_imagenet_spec(spec: str) -> bool:
+    """Whether ``spec`` names ImageNet backbone weights ('auto',
+    'auto:<npz>', 'imagenet:<npz>'): those keep the initializer's values
+    for the RPN and the box and mask branches."""
+    return spec == "auto" or spec.startswith(("auto:", "imagenet:"))
+
+
+def resolve_pretrained_params(spec: str, like, config: MaskRCNNConfig,
+                              device):
+    """The reference ``pretrained_model`` surface, the JAX package's
+    ``resolve_pretrained_params``: 'auto' (ImageNet backbone,
+    mask_rcnn_resnet.py:69-72), 'auto:<npz>' / 'imagenet:<npz>' (explicit
+    ImageNet npz), '<model>.pkl' (Detectron blobs), 'chainer:<npz>' (a
+    reference ``snapshot_model.npz``, also recognised by its layout), or
+    an npz in the parameter bridge's layout.
+
+    ``like`` gives the names, shapes and dtypes the tree must have; for the
+    ImageNet specs it must hold the initializer's values (the RPN and the
+    box and mask branches are copied from it), for the others it may live
+    on the meta device. The importers build the JAX package's layout,
+    which the bridge turns into the port's tensors on ``device``."""
+    if is_imagenet_spec(spec):
+        if any(t.is_meta for t in flatten_params(like).values()):
+            raise ValueError(
+                f"pretrained_model={spec!r} keeps the initializer's RPN and "
+                "branch values: pass an initialized tree, not a meta one")
+        path = (spec.split(":", 1)[1] if ":" in spec
+                else find_imagenet_npz(config.n_layers))
+        tree = import_imagenet_npz(
+            path, unflatten_params(params_to_numpy(like)), config.n_layers)
+    elif spec.endswith(".pkl"):
+        tree = import_detectron_pkl(spec, n_fg_class=config.n_fg_class,
+                                    n_layers=config.n_layers)
+    else:
+        explicit_chainer = spec.startswith("chainer:")
+        path = spec.split(":", 1)[1] if explicit_chainer else spec
+        if not (explicit_chainer or is_chainer_snapshot(path)):
+            return load_params(path, device, like=like)
+        tree = import_chainer_npz(path, config.n_layers)
+    return conform_params(params_from_numpy(flatten_params(tree), device),
+                          like, torch.device(device))
+
+
 class MaskRCNNResNet:
     """Mask R-CNN R-50/101-C4 with the reference's constructor surface.
 
@@ -46,8 +127,8 @@ class MaskRCNNResNet:
     returns per image ``(bboxes (R, 4) y1x1y2x2, masks (R, H, W) bool,
     labels (R,) 0-based, scores (R,))``. ``pad_to_bucket`` (default True)
     pads to the static orientation buckets of ``data/loader.bucket_shape``.
-    ``pretrained_model`` is an npz in the parameter bridge's layout (what
-    either package's ``save_params`` writes). The model runs on the card
+    ``pretrained_model`` takes the specs of
+    :func:`resolve_pretrained_params`. The model runs on the card
     unless ``device`` says otherwise (``device="cpu"`` for the plain
     versions of every kernel).
     """
@@ -90,16 +171,20 @@ class MaskRCNNResNet:
             compute_dtype=compute_dtype,
         )
         device = torch.device(device)
-        if pretrained_model:
+        if pretrained_model and not is_imagenet_spec(pretrained_model):
             # The config's names, shapes and dtypes on the meta device (no
-            # weights drawn): a mismatched npz raises here, as the JAX
+            # weights drawn): a mismatched file raises here, as the JAX
             # constructor's conform_params does, not in a later predict.
             with torch.device("meta"):
                 like = init_params(config, torch.Generator(), "meta")
-            params = load_params(pretrained_model, device, like=like)
+            params = resolve_pretrained_params(pretrained_model, like,
+                                               config, device)
         else:
             gen = torch.Generator().manual_seed(rng_seed)
             params = init_params(config, gen, device)
+            if pretrained_model:
+                params = resolve_pretrained_params(pretrained_model, params,
+                                                   config, device)
         self._setup(config, params, device, pad_to_bucket, uint8_input)
 
     @classmethod

@@ -5,7 +5,7 @@ The ``logs/<timestamp>/`` artifacts: ``params.yaml`` with the full config,
 git hash and hostname, written as JSON (JSON is valid YAML, so the JAX
 package's ``load_params_yaml`` reads it and the port needs no pyyaml); a
 JSON ``log`` file of periodic metrics; loss/map plot PNGs when matplotlib is
-installed.
+installed. ``load_params_yaml`` reads either package's ``params.yaml``.
 """
 
 from __future__ import annotations
@@ -39,6 +39,26 @@ def timestamp_dir(base: str) -> str:
     out = osp.join(base, name)
     os.makedirs(out, exist_ok=True)
     return out
+
+
+def load_params_yaml(log_dir: str) -> Dict:
+    """Read a log dir's ``params.yaml``: the port's (JSON) without pyyaml;
+    a YAML one (a JAX package's or reference log dir) through a lazily
+    imported pyyaml."""
+    with open(osp.join(log_dir, "params.yaml")) as f:
+        text = f.read()
+    try:
+        return json.loads(text)
+    except json.JSONDecodeError:
+        pass
+    try:
+        import yaml
+    except ImportError as e:
+        raise ImportError(
+            f"{osp.join(log_dir, 'params.yaml')} is YAML, not the JSON the "
+            "port writes; reading it needs pyyaml, which is not installed"
+        ) from e
+    return yaml.safe_load(text)
 
 
 def dump_params(out_dir: str, params: Dict) -> None:

@@ -14,6 +14,7 @@ setup(
     ),
     package_data={
         "mask_rcnn_tpu.data": ["sbd_splits/*.txt"],
+        "mask_rcnn_tpu_torch.data": ["sbd_splits/*.txt"],
         # CUDA sources, compiled with nvcc at first use on a GPU, and the
         # host evaluator's C++, compiled with g++ at first use
         "mask_rcnn_tpu_torch": ["csrc/*.cu", "native/*.cpp"],
