@@ -81,12 +81,28 @@ GPU.
    with a JPEG codec (cv2 or PIL) the VOC/SBD drivers run too, on the
    port's SBD root; checks finite losses, the log dirs and that K10, K1,
    K2, K3, K7, K9a and K9b were launched; prints import seconds per spec,
-   driver ms per step, evaluation s per image and the JPEG decoder found.
+   driver ms per step, evaluation s per image and the JPEG decoder found;
+9. data parallelism, in ranks that ``parallel/dryrun.py::launch`` starts
+   (this process holds no group): (i) NCCL at world size 1, the float32
+   data-parallel step against the plain one; (ii) two gloo ranks sharing
+   ``cuda:0`` at the train path's configuration, batch 1 each, 3 float32
+   and 3 bf16 steps against this process's b2 steps on the same
+   priorities (step 1's losses and every leaf's update: float32 within
+   2e-3, bf16 within 5e-3 and 2e-2, with two more plain bf16 steps read
+   against the first and a control, each rank dividing by its own counts
+   with the gradients averaged, that must miss the bf16 limits),
+   identical params on both ranks, the all-reduce timed alone, and K10,
+   K1, K2, K7, K9a and K9b launched in every rank; (iii) ``train()`` on
+   the two ranks over phase 7's images: 2 steps and a checkpoint, a
+   resume to step 4, and a pooled COCO evaluation (score threshold 0)
+   whose match records and report equal this process's evaluation of the
+   same snapshot; K3 launched too.
 
 Prints the card's name and power limit, each path's times, one JSON line
 of kernel results (``launches`` over every main-path run above,
 ``launches_main`` over the default configuration's: the ``align`` serving
-and train runs, the train loop and the entry points), and as its last line
+and train runs, the train loop, the entry points and, summed over the
+ranks, the data-parallel bf16 steps and ``train()``), and as its last line
 ``{"ok": true, "device": {...}}``.
 Exits non-zero, and prints no result, when a phase fails or no CUDA device
 is present.
@@ -2531,6 +2547,554 @@ def run_against(torch, other) -> int:
     return 0
 
 
+# ---- Phase 9: data parallelism on the card --------------------------------
+
+DP_STEPS = 3  # full-width steps of the two-rank runs and their references
+DP_TIMEOUT_S = 600  # every rank's collectives, and the launcher's wait
+# Step 1's limits, (losses relative, each leaf's update against its largest
+# update). float32: phase 3's 2e-3 for the train step on the card. bf16: a
+# leaf's gradient is a bf16 value, whose one rounding is 2^-8 = 3.9e-3 of
+# it, and K7's float atomics move it by a rounding from run to run, so the
+# same code misses 2e-3; the smoke reads repeated plain bf16 steps against
+# each other beside the two ranks, and holds a control (each rank dividing
+# by its own counts, the gradients averaged) to missing these limits.
+DP_TOL = {"float32": (2e-3, 2e-3), "bfloat16": (5e-3, 2e-2)}
+DP_DTYPES = ("float32", "bfloat16")
+DP_PLAIN_REPEATS = 2  # more plain bf16 steps 1, read against the reference
+
+
+def dp_kernel_wrappers():
+    """The train path's kernels (K10, K1, K2, K3, K7, K9a, K9b) by the
+    wrappers that count their launches."""
+    from mask_rcnn_tpu_torch.models import resnet
+    from mask_rcnn_tpu_torch.ops import nms, roi_align, targets
+
+    return (resnet.stem_forward, roi_align.roi_align_grouped,
+            nms.nms_blocked, nms.decode_select,
+            roi_align.roi_align_grouped_backward, targets.anchor_targets,
+            targets.proposal_targets)
+
+
+def step_counts(counts):
+    """The train step's kernels among ``counts`` (K3 serves evaluation)."""
+    return {k: c for k, c in counts.items() if k != "decode_select"}
+
+
+def dp_config(dtype="bfloat16"):
+    from mask_rcnn_tpu_torch.models.mask_rcnn import MaskRCNNConfig
+
+    return MaskRCNNConfig(n_fg_class=N_CLASS_FG, min_size=800,
+                          max_size=1333, anchor_scales=(2, 4, 8, 16, 32),
+                          compute_dtype=dtype)
+
+
+def dp_batch(torch, dev):
+    """Phase 9's b2 batch: phase 2's, but image 1 keeps only its first gt
+    box. Each image of phase 2's batch fills the 128 positive rois of its
+    512, so every loss count is equal across the images and per-rank
+    denominators would give the global ones; here image 1 has fewer
+    positives, hence fewer mask cells, so they differ."""
+    batch = train_batch(torch, 2, *TRAIN_HW, dev)
+    batch["bbox_valid"][1, 1:] = False
+    return batch
+
+
+def dp_steps(torch, batch, dtype, wrap=None, n_steps=DP_STEPS):
+    """``n_steps`` full-width align steps (R-50-C4 COCO, ``dtype`` compute,
+    float32 masters, seeded params, each step's priorities from ``(SEED,
+    step)``) on ``batch``; ``wrap`` turns the step into a rank's. Returns
+    the metrics of each step, the trainable leaves after the first step and
+    after the last (on the CPU) and each step's synchronised host
+    seconds."""
+    from mask_rcnn_tpu_torch import (
+        create_train_state,
+        make_optimizer,
+        make_train_step,
+    )
+    from mask_rcnn_tpu_torch.models.mask_rcnn import init_params
+    from mask_rcnn_tpu_torch.parallel.mesh import barrier, broadcast_params
+    from mask_rcnn_tpu_torch.utils.checkpoint import flatten_params
+
+    cfg = dp_config(dtype)
+    params = init_params(cfg, torch.Generator().manual_seed(SEED),
+                         batch["image"].device)
+    opt, _ = make_optimizer(params, 0.02, 1000)
+    state = create_train_state(params, opt)
+    broadcast_params(state.params)  # nothing to do in one process
+    step = make_train_step(cfg, opt)
+    if wrap is not None:
+        step = wrap(step)
+    flat = flatten_params(state.params)
+    metrics, seconds, leaves = [], [], []
+    for i in range(n_steps):
+        barrier()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = step(state, batch, SEED)
+        torch.cuda.synchronize()
+        seconds.append(time.perf_counter() - t0)
+        metrics.append({k: v.item() for k, v in m.items()})
+        if i in (0, n_steps - 1):
+            # copies: the next step updates the params in place
+            leaves.append({k: flat[k].detach().to("cpu", copy=True)
+                           for k in opt.trainable})
+    return metrics, leaves[0], leaves[-1], seconds
+
+
+def dp_compare(what, got, want, p_init, tol):
+    """``got``'s (metrics, leaves after step 1, leaves after the last
+    step) against ``want``'s: step 1's losses relative and the first
+    step's update of each trainable leaf (the step's gradient) against its
+    largest, held to ``tol`` = (losses, updates); where ``got`` ran more
+    steps, the later steps' losses and the last leaves (against their
+    largest update since ``p_init``) as readings: the runs' paths part
+    once their params differ. Returns the worst of each and the failures
+    against ``tol``."""
+    (gm, g1, gn), (wm, w1, wn) = got, want
+    rel = [max(abs(g[k] - w[k]) / max(abs(w[k]), 1e-12) for k in w)
+           for g, w in zip(gm, wm)]
+    out = {"loss_rel_err_step1": rel[0]}
+    fails = []
+    if rel[0] > tol[0]:
+        fails.append(f"{what}: step 1's losses differ by {rel[0]:.3e}")
+    later = [("last", gn, wn)] if len(gm) > 1 else []
+    for name, got_p, want_p in [("step1", g1, w1)] + later:
+        worst = 0.0
+        for k, w in want_p.items():
+            upd = (w - p_init[k]).abs().max().item()
+            ulp = 4 * float(np.finfo(np.float32).eps) * w.abs().max().item()
+            err = (got_p[k] - w).abs().max().item()
+            worst = max(worst, max(err - ulp, 0.0) / max(upd, 1e-30))
+            if name == "step1" and err > tol[1] * upd + ulp:
+                fails.append(f"{what}: {k} after step 1 differs by "
+                             f"{err:.3e} (its step's largest update "
+                             f"{upd:.3e})")
+        out[f"param_rel_err_{name}"] = worst
+    line = (f"{what}: step 1 losses worst rel err {rel[0]:.3e}, "
+            f"{len(w1)} trainable leaves' step-1 update worst max|err| / "
+            f"max|update| {out['param_rel_err_step1']:.3e} (limits "
+            f"{tol[0]:g} / {tol[1]:g})")
+    if later:
+        out["loss_rel_err_later"] = max(rel[1:])
+        line += (f"; later steps (paths part): losses "
+                 f"{out['loss_rel_err_later']:.3e}, leaves after step "
+                 f"{len(gm)} {out['param_rel_err_last']:.3e}")
+    print(line)
+    return out, fails
+
+
+def dp_records_differ(pooled, one, order):
+    """Where the pooled evaluation's match records (``get_state()``, its
+    images in ``order``) differ from one process's; empty when equal."""
+    if pooled["class_ids"] != one["class_ids"]:
+        return [f"class ids {sorted(pooled['class_ids'])} vs "
+                f"{sorted(one['class_ids'])}"]
+    if len(pooled["per_image"]) != len(one["per_image"]):
+        return [f"{len(pooled['per_image'])} images pooled vs "
+                f"{len(one['per_image'])}"]
+    out = []
+    for j, i in enumerate(order):
+        got, want = pooled["per_image"][j], one["per_image"][i]
+        if got.keys() != want.keys():
+            out.append(f"image {i}: classes {sorted(got)} vs {sorted(want)}")
+            continue
+        out += [f"image {i}, class {c}: {f} differs" for c in want
+                for f in want[c]
+                if not np.array_equal(got[c][f], want[c][f])]
+    return out
+
+
+def dp_evaluator(val_ds, pool):
+    """A COCO evaluator of ``val_ds`` that scores every detection (score
+    threshold 0, so random weights give records to compare) and keeps the
+    match records it scores in ``records`` (the pooled ones, where it
+    pools)."""
+    from mask_rcnn_tpu_torch.engine import evaluator as evm
+
+    records = []
+
+    class Recording(evm.COCOEvaluation):
+        def results(self):
+            records.append(self.get_state())
+            return super().results()
+
+    class Evaluator(evm.InstanceSegmentationEvaluator):
+        def __call__(self, model):
+            model.score_thresh = 0.0
+            saved, evm.COCOEvaluation = evm.COCOEvaluation, Recording
+            try:
+                return super().__call__(model)
+            finally:
+                evm.COCOEvaluation = saved
+
+    ev = Evaluator(val_ds, val_ds.class_names, kind="coco", batch_size=2,
+                   pool_detections=pool)
+    ev.records = records
+    return ev
+
+
+def dp_rank(mode, out):
+    """One rank of phase 9, started by ``drive_data_parallel`` through
+    ``parallel/dryrun.py::launch``; writes ``{mode}_rank{r}.json`` (and,
+    rank 0 of ``gloo2``, its params) into ``out``.
+
+    ``nccl1``: NCCL, world size 1, the float32 data-parallel step against
+    the plain one on the b2 batch. ``gloo2``: two gloo ranks sharing
+    ``cuda:0``, each its row of the b2 batch for ``DP_STEPS`` float32 and
+    ``DP_STEPS`` bf16 steps, a bf16 step 1 of the control (each rank
+    divides its losses by its own counts and the gradients are averaged, a
+    plain DDP port), the all-reduce timed alone, then ``train()`` over
+    phase 7's images."""
+    import torch
+    import torch.distributed as dist
+
+    from mask_rcnn_tpu_torch.parallel.mesh import (
+        DataParallel,
+        all_reduce_grads,
+        barrier,
+        destroy_distributed,
+        init_distributed,
+        local_batch_slice,
+        make_parallel_train_step,
+        process_count,
+        process_index,
+    )
+
+    dev = init_distributed("nccl" if mode == "nccl1" else "gloo", "cuda:0",
+                           timeout=DP_TIMEOUT_S)
+    try:
+        rank = process_index()
+        kernels = dp_kernel_wrappers()
+        full = dp_batch(torch, dev)
+        res = {"rank": rank, "world": process_count()}
+
+        def counted(fn):
+            for w in kernels:
+                w.launches = 0
+            out_ = fn()
+            torch.cuda.synchronize()
+            return out_, {w.__name__: w.launches for w in kernels}
+
+        if mode == "nccl1":
+            got, res["launches"] = counted(lambda: dp_steps(
+                torch, full, "float32", make_parallel_train_step))
+            plain = dp_steps(torch, full, "float32")
+            res["compare"], res["fails"] = dp_compare(
+                "float32, NCCL world size 1 vs the plain step", got[:3],
+                plain[:3], dp_initial_params(torch), DP_TOL["float32"])
+            res["seconds"], res["plain_seconds"] = got[3], plain[3]
+        else:
+            local = {k: v[local_batch_slice(2)] for k, v in full.items()}
+            del full
+            saved, digests = {}, {}
+            for dtype in DP_DTYPES:
+                (m, p1, p, s), counts = counted(lambda: dp_steps(
+                    torch, local, dtype, make_parallel_train_step))
+                res[dtype] = {"metrics": m, "seconds": s}
+                if dtype == "bfloat16":  # the main path's
+                    res["launches"] = counts
+                saved[dtype] = (p1, p)
+                digests[dtype] = [float(p[k].double().sum())
+                                  for k in sorted(p)]
+
+            class PerRankLosses(DataParallel):
+                """The control. A step's first all-reduce is its losses'
+                counts: each rank keeps its own, times the world size, so
+                the SUM of the ranks' gradients and metrics is the mean of
+                their own normalized losses'."""
+                calls = 0
+
+                def all_reduce(self, t):
+                    self.calls += 1
+                    if self.calls % 2:
+                        return t * self.world_size
+                    return super().all_reduce(t)
+
+            control = PerRankLosses.current()
+            m, p1, _, _ = dp_steps(
+                torch, local, "bfloat16", n_steps=1,
+                wrap=lambda step: lambda *a: step(*a, data_parallel=control))
+            res["control"] = {"metrics": m}
+            saved["control"] = (p1, p1)
+            gathered = [None] * process_count()
+            dist.all_gather_object(gathered, digests)
+            res["params_identical"] = all(d == gathered[0] for d in gathered)
+            if rank == 0:
+                torch.save(saved, os.path.join(out, "dp_params.pt"))
+            # the all-reduce alone, on buffers shaped like the gradients
+            grads = [v.to(dev) for v in saved["bfloat16"][1].values()]
+            del saved
+            ar = []
+            for _ in range(4):
+                barrier()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                all_reduce_grads(grads)
+                torch.cuda.synchronize()
+                ar.append(time.perf_counter() - t0)
+            res["all_reduce_seconds"] = ar[1:]
+            res["grad_bytes"] = sum(g.numel() * g.element_size()
+                                    for g in grads)
+            del grads, local
+            res["loop"], res["loop_launches"] = counted(
+                lambda: dp_train_loop(torch, dev, out))
+        with open(os.path.join(out, f"{mode}_rank{rank}.json"), "w") as f:
+            json.dump(res, f)
+    finally:
+        destroy_distributed()
+
+
+def dp_initial_params(torch):
+    from mask_rcnn_tpu_torch.models.mask_rcnn import init_params
+    from mask_rcnn_tpu_torch.utils.checkpoint import flatten_params
+
+    return flatten_params(init_params(dp_config(),
+                                      torch.Generator().manual_seed(SEED)))
+
+
+def dp_loop_data():
+    rng = np.random.RandomState(SEED + 7)
+    return (rectangles_dataset(rng, 16, *LOOP_HW),
+            rectangles_dataset(rng, 4, *LOOP_HW))
+
+
+def dp_train_loop(torch, dev, out):
+    """``train()`` as one of two ranks over phase 7's images (1 a rank,
+    global batch 2): run A stops at step 2 with a checkpoint, run B
+    resumes from it to step 4 and evaluates (pooled) at step 4."""
+    import pickle
+
+    from mask_rcnn_tpu_torch.data import MaskRCNNTransform, TrainLoader
+    from mask_rcnn_tpu_torch.engine.loop import train
+    from mask_rcnn_tpu_torch.parallel.mesh import (
+        process_count,
+        process_index,
+    )
+
+    train_ds, val_ds = dp_loop_data()
+    lo, hi = LOOP_SIZES
+    cfg = dp_config()
+    evaluator = dp_evaluator(val_ds, pool=True)
+
+    def loader():
+        return TrainLoader(train_ds, MaskRCNNTransform(
+            lo, hi, cfg.mean, train=True, rng=np.random.RandomState(SEED)),
+            batch_size=1, max_boxes=8, min_size=lo, max_size=hi, seed=SEED,
+            process_index=process_index(), process_count=process_count())
+
+    kw = dict(max_epoch=1.0, evaluator=evaluator, eval_interval_epochs=0.5,
+              log_interval=2, checkpoint_interval_steps=2, seed=SEED,
+              device=dev)
+    run_a, run_b = os.path.join(out, "loop_a"), os.path.join(out, "loop_b")
+    t0 = time.perf_counter()
+    res_a = train(cfg, loader(), run_a, stop_at_step=2, **kw)
+    res_b = train(cfg, loader(), run_b, stop_at_step=4,
+                  resume_from=os.path.join(run_a, "train_state"), **kw)
+    if process_index() == 0:
+        with open(os.path.join(out, "pooled_records.pkl"), "wb") as f:
+            pickle.dump(evaluator.records, f)
+    return {"iterations": [res_a["iterations"], res_b["iterations"]],
+            "seconds": time.perf_counter() - t0}
+
+
+def drive_data_parallel(torch, kernels):
+    """Phase 9: the data-parallel path on the card, in ranks that
+    ``parallel/dryrun.py::launch`` starts (this process holds no group):
+    (i) NCCL at world size 1, the data-parallel step against the plain
+    one; (ii) two gloo ranks sharing ``cuda:0`` at full width, batch 1
+    each, against this process's b2 step on the same priorities (float32
+    and bf16, each at its ``DP_TOL``; repeated plain bf16 steps read
+    against each other; the control must miss the bf16 limits), with the
+    launch counters of the path's kernels moving in every rank; (iii)
+    ``train()`` on the two ranks, 4 steps, a resume and a pooled
+    evaluation whose match records and report equal a one-process
+    evaluation's. Returns the launch counts summed over the ranks (all
+    runs; the default configuration's: the bf16 steps and ``train()``)
+    and the phase's numbers."""
+    import pickle
+    import tempfile
+
+    from mask_rcnn_tpu_torch import MaskRCNNResNet
+    from mask_rcnn_tpu_torch.models.mask_rcnn import init_params
+    from mask_rcnn_tpu_torch.parallel.dryrun import launch
+    from mask_rcnn_tpu_torch.utils.checkpoint import load_params
+
+    dev = torch.device("cuda")
+    full = dp_batch(torch, dev)
+    ref = {dtype: dp_steps(torch, full, dtype) for dtype in DP_DTYPES}
+    repeats = [dp_steps(torch, full, "bfloat16", n_steps=1)
+               for _ in range(DP_PLAIN_REPEATS)]
+    del full
+    torch.cuda.empty_cache()
+    p0 = dp_initial_params(torch)
+    out, fails = {}, []
+    out["plain_bf16_repeats"] = []
+    runs = [ref["bfloat16"]] + repeats
+    for j in range(1, len(runs)):
+        for i in range(j):
+            cmp, bad = dp_compare(
+                f"bfloat16, plain b2 step 1, run {j + 1} vs run {i + 1}",
+                runs[j][:3], runs[i][:3], p0, DP_TOL["bfloat16"])
+            out["plain_bf16_repeats"].append(cmp)
+            fails += bad
+    del repeats, runs
+    counts = {w.__name__: 0 for w in kernels}
+    counts_main = dict(counts)
+    with tempfile.TemporaryDirectory(prefix="mrcnn_dp_") as tmp:
+        for mode, nproc in (("nccl1", 1), ("gloo2", 2)):
+            cmd = [sys.executable, os.path.abspath(__file__), "--dp-rank",
+                   mode, tmp]
+            t0 = time.perf_counter()
+            try:
+                launch(cmd, nproc, DP_TIMEOUT_S, log_dir=tmp)
+            finally:
+                for r in range(nproc):
+                    for ext in ("out", "err"):
+                        path = os.path.join(tmp, f"rank{r}.{ext}")
+                        with open(path) as f:
+                            text = f.read().strip()
+                        if text:
+                            print(f"[{mode} rank {r} {ext}]\n" + "\n".join(
+                                text.splitlines()[-40:]))
+            out[f"{mode}_wall_s"] = time.perf_counter() - t0
+            ranks = []
+            for r in range(nproc):
+                with open(os.path.join(tmp, f"{mode}_rank{r}.json")) as f:
+                    ranks.append(json.load(f))
+            for r, res in enumerate(ranks):
+                require_launched(step_counts(res["launches"]),
+                                 f"data-parallel step ({mode}, rank {r})")
+                for k, c in res["launches"].items():
+                    counts[k] += c
+                    if mode == "gloo2":  # bf16; nccl1's steps are float32
+                        counts_main[k] += c
+            if mode == "nccl1":
+                out["nccl1"] = dict(ranks[0]["compare"],
+                                    seconds=ranks[0]["seconds"],
+                                    plain_seconds=ranks[0]["plain_seconds"])
+                print("NCCL world size 1:", out["nccl1"])
+                fails += ranks[0]["fails"]
+                continue
+            if not all(r["params_identical"] for r in ranks):
+                fails.append("the two ranks' params differ")
+            params = torch.load(os.path.join(tmp, "dp_params.pt"))
+            cmp = {}
+            for dtype in DP_DTYPES:
+                got = (ranks[0][dtype]["metrics"], *params[dtype])
+                cmp[dtype], bad = dp_compare(
+                    f"{dtype}, two gloo ranks (b1 each) vs one process "
+                    "(b2)", got, ref[dtype][:3], p0, DP_TOL[dtype])
+                fails += bad
+            got = (ranks[0]["control"]["metrics"], *params["control"])
+            cmp["control"], bad = dp_compare(
+                "control: bfloat16, two gloo ranks each dividing by its own "
+                "counts, gradients averaged, vs one process (b2)", got,
+                ref["bfloat16"][:3], p0, DP_TOL["bfloat16"])
+            if not bad:
+                fails.append("the control met the bf16 limits: they cannot "
+                             "tell the global denominators from per-rank "
+                             "ones")
+            print(f"control missed the bf16 limits in {len(bad)} place(s), "
+                  "as it must" if bad else "control met the bf16 limits")
+            del params
+            step_s = [max(r["bfloat16"]["seconds"][i] for r in ranks)
+                      for i in range(DP_STEPS)]
+            ar_s = [max(r["all_reduce_seconds"][i] for r in ranks)
+                    for i in range(len(ranks[0]["all_reduce_seconds"]))]
+            ms_2 = 1e3 * float(np.median(step_s[1:]))
+            ms_1 = 1e3 * float(np.median(ref["bfloat16"][3][1:]))
+            ar_ms = 1e3 * float(np.median(ar_s))
+            print(f"data-parallel step, R-50-C4 COCO 832x1344 bf16: two "
+                  f"gloo ranks sharing one card, b1 each: {ms_2:.3f} ms/step; "
+                  f"one process b2: {ms_1:.3f} ms/step (host clock, "
+                  f"synchronised, median of steps 2-{DP_STEPS}); "
+                  f"difference {ms_2 - ms_1:.3f} ms = "
+                  f"{(ms_2 - ms_1) / ms_2:.1%} of the two-rank step; the "
+                  f"gradient all-reduce alone ({ranks[0]['grad_bytes']} "
+                  f"bytes, gloo through the host) {ar_ms:.3f} ms = "
+                  f"{ar_ms / ms_2:.1%}. Two ranks on one card: the "
+                  "collective's cost, not scaling")
+            for dtype in DP_DTYPES:
+                for i, (g, w) in enumerate(zip(ranks[0][dtype]["metrics"],
+                                               ref[dtype][0])):
+                    print(f"  {dtype} step {i + 1} loss: two ranks "
+                          f"{g['loss']:.6f}, one process {w['loss']:.6f}")
+            out["gloo2"] = dict(compare=cmp, ms_per_step_2ranks=ms_2,
+                                ms_per_step_1proc_b2=ms_1,
+                                all_reduce_ms=ar_ms,
+                                grad_bytes=ranks[0]["grad_bytes"],
+                                step_seconds=step_s,
+                                ref_step_seconds=ref["bfloat16"][3],
+                                f32_step_seconds=[
+                                    max(r["float32"]["seconds"][i]
+                                        for r in ranks)
+                                    for i in range(DP_STEPS)],
+                                f32_ref_step_seconds=ref["float32"][3])
+
+            # (iii) train() on two ranks: the loop's kernels in every rank,
+            # rank 0's artifacts, and the pooled records and report against
+            # this process's evaluation of the same params
+            for r, res in enumerate(ranks):
+                require_launched(res["loop_launches"],
+                                 f"data-parallel train() (rank {r})")
+                for k, c in res["loop_launches"].items():
+                    counts[k] += c
+                    counts_main[k] += c
+                assert res["loop"]["iterations"] == [2, 4], res["loop"]
+            run_b = os.path.join(tmp, "loop_b")
+            with open(os.path.join(run_b, "params.yaml")) as f:
+                pyaml = json.load(f)
+            assert (pyaml["n_devices"], pyaml["batch_size"]) == (2, 2), pyaml
+            assert abs(pyaml["lr"] - 0.0025) < 1e-12, pyaml
+            log = read_log(run_b)
+            reports = [e for e in log if "validation/main/map" in e]
+            losses = [e for e in log if "main/loss" in e]
+            assert [e["iteration"] for e in reports] == [4], log
+            assert all(np.isfinite(v) for e in losses for k, v in e.items()
+                       if k.startswith("main/")), losses
+            cfg = dp_config()
+            snapshot = load_params(os.path.join(run_b, "snapshot_model.npz"),
+                                   dev, like=init_params(
+                                       cfg, torch.Generator().manual_seed(0),
+                                       dev))
+            _, val_ds = dp_loop_data()
+            evaluator = dp_evaluator(val_ds, pool=False)
+            one = evaluator(MaskRCNNResNet.from_config(cfg, snapshot,
+                                                       device=dev))
+            with open(os.path.join(tmp, "pooled_records.pkl"), "rb") as f:
+                pooled_records = pickle.load(f)
+            n = len(val_ds)
+            order = [i for r in range(2) for i in range(n)[r::2]]
+            differ = dp_records_differ(pooled_records[-1],
+                                       evaluator.records[-1], order)
+            n_dets = sum(len(rec["det_scores"])
+                         for img in evaluator.records[-1]["per_image"]
+                         for rec in img.values())
+            assert not differ, differ[:10]
+            pooled = {k: v for k, v in reports[0].items()
+                      if k.startswith("validation/")}
+            # NaN: a class with detections and no ground truth
+            assert pooled.keys() == one.keys() and all(
+                pooled[k] == v or (np.isnan(pooled[k]) and np.isnan(v))
+                for k, v in one.items()), (pooled, one)
+            print(f"data-parallel train(): 2 ranks, steps 1-2, checkpoint, "
+                  f"resume to 4, pooled COCO evaluation at step 4 (score "
+                  f"threshold 0): the match records of its {n} images "
+                  f"({n_dets} detections) and its report equal one "
+                  f"process's ({len(one)} keys, map "
+                  f"{one.get('validation/main/map')}, map@0.5 "
+                  f"{one.get('validation/main/map@0.5')}); "
+                  f"{ranks[0]['loop']['seconds']:.2f} s wall in rank 0")
+            out["loop"] = {"seconds": ranks[0]["loop"]["seconds"],
+                           "map": one.get("validation/main/map"),
+                           "detections": n_dets}
+    print(f"kernel launches during the data-parallel runs (all ranks): "
+          f"{counts}; of the default configuration (bf16 steps, train()): "
+          f"{counts_main}")
+    assert not fails, "phase 9 failed:\n" + "\n".join(fails)
+    return counts, counts_main, out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--against", metavar="OTHER_CHECKOUT",
@@ -2539,9 +3103,13 @@ def main(argv=None) -> int:
                     "step and the align train step against another "
                     "checkout's instead of the smoke")
     ap.add_argument("--ab-worker", nargs=3, help=argparse.SUPPRESS)
+    ap.add_argument("--dp-rank", nargs=2, help=argparse.SUPPRESS)
     a = ap.parse_args(argv)
     if a.ab_worker:
         ab_worker(*a.ab_worker)
+        return 0
+    if a.dp_rank:
+        dp_rank(*a.dp_rank)
         return 0
     import torch
 
@@ -2638,6 +3206,12 @@ def main(argv=None) -> int:
                 targets.anchor_targets, targets.proposal_targets))
     count(counts, True)
     entry_points["launches"] = counts
+    counts, counts_main, data_parallel = drive_data_parallel(
+        torch, dp_kernel_wrappers())
+    count(counts, False)
+    for name, c in counts_main.items():
+        launches_main[name] = launches_main.get(name, 0) + c
+    data_parallel["launches"] = counts
     for name, entry in results.items():
         # nms_small serves no main path since decode_select took the decode
         entry["launches"] = launches.get(name, 0)
@@ -2645,7 +3219,8 @@ def main(argv=None) -> int:
 
     print(json.dumps({"serving": serving, "training": training,
                       "flat_head_ms_fwd_bwd": flat_ms, "train_loop": loop,
-                      "entry_points": entry_points, "card": smi}))
+                      "entry_points": entry_points,
+                      "data_parallel": data_parallel, "card": smi}))
     order = ("roi_align_grouped", "nms_blocked", "nms_small",
              "decode_select", "roi_align_grouped_backward", "anchor_targets",
              "proposal_targets", "crop_and_resize",

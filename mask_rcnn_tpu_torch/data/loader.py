@@ -117,8 +117,10 @@ class TrainLoader:
     slicing of each global batch and background prefetch (one worker
     thread; decode and transform run in numpy, so a thread overlaps them
     with device steps). The index sequence, aspect grouping, resume walk and
-    prefetch are the JAX package's (mask_rcnn_tpu/data/loader.py:122-373);
-    the multi-process callers come with the data-parallel slice."""
+    prefetch are the JAX package's (mask_rcnn_tpu/data/loader.py:122-373).
+    Under data parallelism each rank builds it with its ``process_index``
+    and the group's ``process_count`` at one device's batch, and pads to
+    ``_batch_force_shape`` so every rank's batch has one shape."""
 
     def __init__(
         self,

@@ -1,32 +1,37 @@
 """Evaluation hook, the port of ``mask_rcnn_tpu/engine/evaluator.py``
-(the reference's InstanceSegmentationCOCOEvaluator / VOCEvaluator), single
-process.
+(the reference's InstanceSegmentationCOCOEvaluator / VOCEvaluator).
 
-The multi-process pooling and report aggregation (JAX evaluator.py:253-275,
-311-400) come with the data-parallel port, and asking for them raises;
-``VisReport`` (cv2 drawing) comes with the command-line tools.
+In a process group (``parallel/mesh.py``) each rank scores a strided shard
+of the dataset; the ranks exchange failure flags first, then either pool
+their match records (``pool_detections``: the exact global metric) or
+average their reports (the reference's chainermn evaluator), as the JAX
+package does (its evaluator.py:245-399). ``VisReport`` (cv2 drawing) comes
+with the command-line tools.
 """
 
 from __future__ import annotations
 
 import queue as queue_mod
 import threading
+import warnings
 from typing import Dict, Optional, Sequence
 
 import numpy as np
 
+from mask_rcnn_tpu_torch.parallel.mesh import process_count, process_index
 from mask_rcnn_tpu_torch.utils.cocoeval import COCOEvaluation
 from mask_rcnn_tpu_torch.utils.voc_eval import VOCEvaluation
 
 
-def _single_process() -> None:
+def _all_gather(obj) -> list:
+    """Every rank's ``obj`` in rank order (CPU objects: gloo has no CUDA
+    all_gather; under NCCL the rank's device is set by
+    ``init_distributed``)."""
     import torch.distributed as dist
 
-    if dist.is_available() and dist.is_initialized() \
-            and dist.get_world_size() > 1:
-        raise NotImplementedError(
-            "InstanceSegmentationEvaluator runs in one process; pooling and "
-            "averaging across processes come with the data-parallel port")
+    out = [None] * dist.get_world_size()
+    dist.all_gather_object(out, obj)
+    return out
 
 
 class InstanceSegmentationEvaluator:
@@ -49,26 +54,31 @@ class InstanceSegmentationEvaluator:
         max_examples: Optional[int] = None,
         pool_detections: bool = False,
     ):
+        """``pool_detections``: with several processes, gather every
+        rank's compact match records and score them together (the exact
+        global metric, identical on every rank); off, the ranks' reports
+        are averaged (the reference's chainermn evaluator). One process:
+        no effect."""
         if kind not in ("coco", "voc"):
             raise ValueError(f"kind must be 'coco' or 'voc', got {kind!r}")
-        if pool_detections:
-            raise NotImplementedError(
-                "pool_detections pools records across processes; it comes "
-                "with the data-parallel port")
         self.dataset = dataset
         self.class_names = list(class_names)
         self.kind = kind
         self.batch_size = batch_size
         self.use_07_metric = use_07_metric
         self.max_examples = max_examples
+        self.pool_detections = pool_detections
 
     def __call__(self, model) -> Dict[str, float]:
-        _single_process()
         n = len(self.dataset)
         if self.max_examples:
             n = min(n, self.max_examples)
-        indices = list(range(n))
-        batch_size = self.batch_size
+        # Each rank scores a strided shard (JAX evaluator.py:61-67).
+        pi, pc = process_index(), process_count()
+        indices = list(range(n))[pi::pc]
+        # Sharded predict pads its batch to the device count anyway.
+        batch_size = max(self.batch_size,
+                         len(getattr(model, "devices", None) or ()))
 
         # Streaming accumulation: each batch's full-resolution masks are
         # matched into compact per-(image, class) IoU/score records right
@@ -207,34 +217,57 @@ class InstanceSegmentationEvaluator:
         else:
             collect, ingest = getattr(model, "predict_collect", None), enqueue
         pipelined = submit is not None and collect is not None
-        pending = None  # (handle, examples) with one device batch in flight
+        sweep_error = None
         try:
-            for start in range(0, len(indices), batch_size):
-                examples = [
-                    self.dataset[i]
-                    for i in indices[start:start + batch_size]
-                ]
-                imgs = [e[0].transpose(2, 0, 1).astype(np.float32)
-                        for e in examples]
-                if pipelined:
-                    handle = submit(imgs)
-                    if pending is not None:
-                        ingest(pending[1], collect(pending[0]))
-                    pending = (handle, examples)
-                else:
-                    enqueue(examples, model.predict(imgs))
-                if failure:
-                    pending = None
-                    break
-            if pending is not None:
-                ingest(pending[1], collect(pending[0]))
-        finally:
-            q.put(None)
-            t.join()
-        if failure:
-            raise RuntimeError("evaluation scoring failed") from failure[0]
+            pending = None  # (handle, examples): one device batch in flight
+            try:
+                for start in range(0, len(indices), batch_size):
+                    examples = [
+                        self.dataset[i]
+                        for i in indices[start:start + batch_size]
+                    ]
+                    imgs = [e[0].transpose(2, 0, 1).astype(np.float32)
+                            for e in examples]
+                    if pipelined:
+                        handle = submit(imgs)
+                        if pending is not None:
+                            ingest(pending[1], collect(pending[0]))
+                        pending = (handle, examples)
+                    else:
+                        enqueue(examples, model.predict(imgs))
+                    if failure:
+                        pending = None
+                        break
+                if pending is not None:
+                    ingest(pending[1], collect(pending[0]))
+            finally:
+                q.put(None)
+                t.join()
+            if failure:
+                raise RuntimeError(
+                    "evaluation scoring failed") from failure[0]
+        except BaseException as e:
+            # Several processes: raising here would leave the other ranks
+            # blocked in the collectives below. Exchange failure flags
+            # first (every rank reaches it), then raise everywhere.
+            if pc == 1:
+                raise
+            sweep_error = e
+        if pc > 1:
+            flags = _all_gather(sweep_error is not None)
+            bad = [r for r, f in enumerate(flags) if f]
+            if bad:
+                raise RuntimeError(
+                    f"evaluation failed on process(es) {bad}"
+                ) from sweep_error
+        if pc > 1 and self.pool_detections:
+            # The exact global metric: every rank rebuilds the union of the
+            # shards' records in rank order and scores it.
+            n_added = self._pool_states(ev, n_added)
 
-        # An empty dataset reports no keys.
+        # An empty shard (or dataset) reports no keys; with several
+        # processes it still joins the averaging below, where its all-NaN
+        # vector is ignored.
         report = {}
         if n_added and self.kind == "coco":
             res = ev.results()
@@ -261,4 +294,61 @@ class InstanceSegmentationEvaluator:
                     report[
                         f"validation/main/ap/{self.class_names[cid]}"
                     ] = float(ap)
+        if pc > 1 and not self.pool_detections:
+            report = self._aggregate_reports(report)
         return report
+
+    @staticmethod
+    def _pool_states(ev, n_added: int) -> int:
+        """Gather every rank's ``(n_added, ev.get_state())`` in rank order
+        and rebuild ``ev`` from them: every rank holds the same records in
+        the same order, so tied scores break alike and the pooled metric
+        is identical on every rank. Returns the global example count."""
+        total = 0
+        for rank, (count, state) in enumerate(
+                _all_gather((n_added, ev.get_state()))):
+            total += count
+            if rank == 0:
+                ev.set_state(state)
+            else:
+                ev.merge_state(state)
+        return total
+
+    # -- report averaging across processes --------------------------------
+    _SCALAR_KEYS = (
+        "validation/main/map",
+        "validation/main/map@0.5",
+        "validation/main/map@0.75",
+    )
+
+    def _report_to_vector(self, report: Dict[str, float]) -> np.ndarray:
+        vec = np.full(len(self._SCALAR_KEYS) + len(self.class_names),
+                      np.nan, np.float32)
+        for i, k in enumerate(self._SCALAR_KEYS):
+            if k in report:
+                vec[i] = report[k]
+        for cid, name in enumerate(self.class_names):
+            k = f"validation/main/ap/{name}"
+            if k in report:
+                vec[len(self._SCALAR_KEYS) + cid] = report[k]
+        return vec
+
+    def _vector_to_report(self, vec: np.ndarray) -> Dict[str, float]:
+        report = {}
+        for i, k in enumerate(self._SCALAR_KEYS):
+            if np.isfinite(vec[i]):
+                report[k] = float(vec[i])
+        for cid, name in enumerate(self.class_names):
+            v = vec[len(self._SCALAR_KEYS) + cid]
+            if np.isfinite(v):
+                report[f"validation/main/ap/{name}"] = float(v)
+        return report
+
+    def _aggregate_reports(self, report: Dict[str, float]):
+        """The mean of the ranks' reports (float32, NaN = the key is absent
+        on that rank). Every rank must call it."""
+        gathered = np.stack(_all_gather(self._report_to_vector(report)))
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore", RuntimeWarning)  # all-NaN cols
+            mean = np.nanmean(gathered, axis=0)
+        return self._vector_to_report(mean)

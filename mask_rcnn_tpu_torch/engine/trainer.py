@@ -154,7 +154,12 @@ def make_train_step(cfg: MaskRCNNConfig, optimizer: MomentumSGD,
 
     ``rng`` is an int seed (the step's generator is seeded from
     ``(rng, state.step)`` on the batch's device) or the priorities that
-    :func:`train_loss` takes. The step updates ``state.params`` and
+    :func:`train_loss` takes. ``data_parallel`` (given by
+    ``parallel/mesh.py::make_parallel_train_step``) makes the step one
+    rank's part of a global batch: ``rng`` then stands for the global
+    batch, the losses are normalized over it, and the trainable gradients
+    (so the clip norm) and the metrics are SUM-reduced over the ranks
+    before the update. The step updates ``state.params`` and
     ``state.momentum`` in place under ``torch.no_grad()`` and returns a
     state that shares them, with the step incremented; the metrics are
     detached 0-d tensors on the device (reading them syncs the host).
@@ -162,7 +167,7 @@ def make_train_step(cfg: MaskRCNNConfig, optimizer: MomentumSGD,
     p_cfg = proposal_cfg or ProposalTargetConfig()
     a_cfg = anchor_cfg or AnchorTargetConfig()
 
-    def step_fn(state: TrainState, batch, rng):
+    def step_fn(state: TrainState, batch, rng, data_parallel=None):
         if isinstance(rng, (int, np.integer)):
             dev = batch["image"].device
             rng = torch.Generator(device=dev).manual_seed(
@@ -170,11 +175,17 @@ def make_train_step(cfg: MaskRCNNConfig, optimizer: MomentumSGD,
         flat = flatten_params(state.params)
         names = sorted(optimizer.trainable)
         loss, metrics = train_loss(state.params, cfg, batch, rng,
-                                   anchor_cfg=a_cfg, proposal_cfg=p_cfg)
+                                   anchor_cfg=a_cfg, proposal_cfg=p_cfg,
+                                   data_parallel=data_parallel)
         grads = torch.autograd.grad(loss, [flat[k] for k in names])
+        metrics = {k: v.detach() for k, v in metrics.items()}
+        if data_parallel is not None:
+            grads = data_parallel.all_reduce_grads(grads)
+            summed = data_parallel.all_reduce(torch.stack(list(
+                metrics.values())))
+            metrics = dict(zip(metrics, summed.unbind()))
         optimizer.apply(state.params, state.momentum,
                         dict(zip(names, grads)), state.step)
-        metrics = {k: v.detach() for k, v in metrics.items()}
         return TrainState(state.params, state.momentum, state.step + 1), \
             metrics
 

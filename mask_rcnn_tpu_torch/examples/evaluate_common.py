@@ -28,8 +28,9 @@ def evaluate(test_data, class_names, dataset_kind, indices_vis=None,
     )
     parser.add_argument(
         "--pool-detections", action="store_true",
-        help="multi-process eval (not in the port yet: the evaluator "
-        "raises)",
+        help="multi-process eval: gather every rank's compact match records "
+        "and score them together (the exact global mAP) instead of "
+        "averaging the ranks' reports; one process: no effect",
     )
     parser.add_argument(
         "--device", default="cuda",

@@ -7,8 +7,11 @@ The same flags: --model {resnet50,resnet101}, --pooling-func
 --eval-interval-epochs, --max-eval-examples, --compute-dtype, --min-size,
 --max-size, --multi-node, --pool-detections, --resume,
 --checkpoint-interval, --clip-norm, --remat, --input-uint8; plus --device
-(default ``cuda``). The port trains on one device: --multi-node is
-rejected, and --pool-detections raises in the evaluator. No visualization
+(default ``cuda``). --multi-node runs one process per device under
+``torchrun --nproc-per-node N`` (``parallel/mesh.py::init_distributed``:
+``cuda:{LOCAL_RANK}``, NCCL; gloo on the CPU): each rank's loader takes its
+slice of every global batch of ``N * --batch-size-per-gpu`` images, and
+--pool-detections pools the ranks' evaluation records. No visualization
 report is written yet (``VisReport`` draws with cv2; it comes in a later
 slice).
 """
@@ -72,12 +75,15 @@ def parse_args(dataset_defaults: dict, argv=None):
     )
     parser.add_argument(
         "--multi-node", action="store_true",
-        help="multi-process training (not in the port yet: rejected)",
+        help="data-parallel training, one process per device: run under "
+        "`torchrun --nproc-per-node N` (device cuda:{LOCAL_RANK}, NCCL; "
+        "gloo with --device cpu)",
     )
     parser.add_argument(
         "--pool-detections", action="store_true",
-        help="multi-process eval: pool every rank's match records (not in "
-        "the port yet: the evaluator raises)",
+        help="multi-process eval: gather every rank's compact match records "
+        "and score them together (the exact global mAP) instead of "
+        "averaging the ranks' reports",
     )
     parser.add_argument(
         "--resume", default=None,
@@ -106,15 +112,21 @@ def parse_args(dataset_defaults: dict, argv=None):
         help="torch device to train on ('cpu' runs every kernel's plain "
         "version)",
     )
-    args = parser.parse_args(argv)
-    if args.multi_node:
-        parser.error("--multi-node: the port trains on one device; "
-                     "multi-process training comes in a later slice")
-    return args
+    return parser.parse_args(argv)
 
 
 def train(args, train_data, test_data, class_names, dataset_kind,
           min_size, max_size, anchor_scales):
+    from mask_rcnn_tpu_torch.parallel.mesh import (
+        init_distributed,
+        process_count,
+        process_index,
+    )
+
+    device = args.device
+    if args.multi_node:
+        device = init_distributed(device=args.device)
+
     from mask_rcnn_tpu_torch.data import MaskRCNNTransform, TrainLoader
     from mask_rcnn_tpu_torch.engine.evaluator import (
         InstanceSegmentationEvaluator,
@@ -146,11 +158,13 @@ def train(args, train_data, test_data, class_names, dataset_kind,
     loader = TrainLoader(
         train_data,
         transform,
-        batch_size=args.batch_size_per_gpu,  # one device
+        batch_size=args.batch_size_per_gpu,  # one device a process
         max_boxes=args.max_boxes,
         min_size=min_size,
         max_size=max_size,
         seed=args.seed,
+        process_index=process_index(),
+        process_count=process_count(),
     )
     evaluator = InstanceSegmentationEvaluator(
         test_data, class_names, kind=dataset_kind,
@@ -160,7 +174,14 @@ def train(args, train_data, test_data, class_names, dataset_kind,
         max_examples=args.max_eval_examples,
         pool_detections=args.pool_detections,
     )
-    out_dir = timestamp_dir(args.logs_dir)
+    out_dir = [timestamp_dir(args.logs_dir) if process_index() == 0
+               else None]
+    if process_count() > 1:
+        # each rank's clock may name another directory: take rank 0's
+        import torch.distributed as dist
+
+        dist.broadcast_object_list(out_dir, src=0)
+    out_dir = out_dir[0]
     print(f"logs -> {out_dir}")
     print("visualization (VisReport) comes in a later slice of the port: "
           "no visualizations are written")
@@ -187,7 +208,7 @@ def train(args, train_data, test_data, class_names, dataset_kind,
             "initializer": args.initializer,
             "pretrained_model": args.pretrained_model,
         },
-        device=args.device,
+        device=device,
     )
     result["log_dir"] = out_dir
     print(result)

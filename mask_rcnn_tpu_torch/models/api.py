@@ -28,6 +28,10 @@ from mask_rcnn_tpu_torch.models.mask_rcnn import (
     init_params,
     predict_step,
 )
+from mask_rcnn_tpu_torch.parallel.mesh import (
+    make_parallel_predict_step,
+    replicate_params,
+)
 from mask_rcnn_tpu_torch.utils.checkpoint import (
     conform_params,
     flatten_params,
@@ -130,7 +134,11 @@ class MaskRCNNResNet:
     ``pretrained_model`` takes the specs of
     :func:`resolve_pretrained_params`. The model runs on the card
     unless ``device`` says otherwise (``device="cpu"`` for the plain
-    versions of every kernel).
+    versions of every kernel). ``devices`` (the JAX ``mesh=``) shards each
+    batch over several devices of this process: the params are copied to
+    each, the batch is padded to a multiple of ``len(devices)`` and split
+    in order, and no collective runs; the model then lives on
+    ``devices[0]``.
     """
 
     def __init__(
@@ -151,6 +159,7 @@ class MaskRCNNResNet:
         pad_to_bucket: bool = True,
         uint8_input: bool = False,
         device="cuda",
+        devices: Optional[Sequence] = None,
     ):
         if n_fg_class is None:
             raise ValueError("n_fg_class is required")
@@ -170,7 +179,7 @@ class MaskRCNNResNet:
             proposal=rpn_mod.ProposalConfig(**pcp),
             compute_dtype=compute_dtype,
         )
-        device = torch.device(device)
+        device = torch.device(devices[0] if devices else device)
         if pretrained_model and not is_imagenet_spec(pretrained_model):
             # The config's names, shapes and dtypes on the meta device (no
             # weights drawn): a mismatched file raises here, as the JAX
@@ -185,29 +194,37 @@ class MaskRCNNResNet:
             if pretrained_model:
                 params = resolve_pretrained_params(pretrained_model, params,
                                                    config, device)
-        self._setup(config, params, device, pad_to_bucket, uint8_input)
+        self._setup(config, params, device, pad_to_bucket, uint8_input,
+                    devices)
 
     @classmethod
     def from_config(cls, config: MaskRCNNConfig, params, device=None,
                     pad_to_bucket: bool = True,
-                    uint8_input: bool = False) -> "MaskRCNNResNet":
+                    uint8_input: bool = False,
+                    devices: Optional[Sequence] = None) -> "MaskRCNNResNet":
         """Wrap existing (config, params); the device defaults to the
-        params' own."""
+        params' own (``devices[0]`` with ``devices``)."""
         model = cls.__new__(cls)
-        if device is None:
+        if devices:
+            device = devices[0]
+        elif device is None:
             device = params["head"]["score"]["W"].device
         model._setup(config, params, torch.device(device), pad_to_bucket,
-                     uint8_input)
+                     uint8_input, devices)
         return model
 
-    def _setup(self, config, params, device, pad_to_bucket, uint8_input):
+    def _setup(self, config, params, device, pad_to_bucket, uint8_input,
+               devices=None):
         self.config = config
         self.params = params
         self.device = device
+        self.devices = (tuple(torch.device(d) for d in devices)
+                        if devices else None)
         self.score_thresh = 0.05
         self.pad_to_bucket = pad_to_bucket
         self.uint8_input = uint8_input
         self._cast = (None, None)  # (params object, its compute-dtype copy)
+        self._replicas = (None, None)  # (that copy, one copy a device)
 
     @property
     def n_class(self):
@@ -223,6 +240,14 @@ class MaskRCNNResNet:
             self._cast = (self.params,
                           cast_params(self.params, self.config.compute_dtype))
         return self._cast[1]
+
+    def _replica_params(self):
+        """The compute-dtype params on each of ``devices``, copied once
+        per params object."""
+        cast = self._compute_params()
+        if self._replicas[0] is not cast:
+            self._replicas = (cast, replicate_params(cast, self.devices))
+        return self._replicas[1]
 
     # -- preprocessing ---------------------------------------------------
     def prepare(self, imgs: Sequence[np.ndarray]):
@@ -307,8 +332,14 @@ class MaskRCNNResNet:
             run_cfg = dataclasses.replace(
                 cfg, score_thresh=float(self.score_thresh))
         with torch.no_grad():
-            out = predict_step(self._compute_params(), run_cfg, x, sizes_t,
-                               scales_t)
+            if self.devices is None:
+                out = predict_step(self._compute_params(), run_cfg, x,
+                                   sizes_t, scales_t)
+            else:
+                out = make_parallel_predict_step(
+                    lambda p, i, sz, sc: predict_step(p, run_cfg, i, sz, sc),
+                    self.devices)(self._replica_params(), x, sizes_t,
+                                  scales_t)
         return out, sizes, n
 
     def predict_collect(

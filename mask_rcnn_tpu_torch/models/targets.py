@@ -27,16 +27,31 @@ from mask_rcnn_tpu_torch.ops.targets import (  # noqa: F401
 )
 
 
-def _priorities(priorities, generator, shape, device):
-    if priorities is not None:
+def _priorities(priorities, generator, shape, device, rows=None):
+    """The (positives, negatives) priorities of ``shape`` = (N, K). With
+    ``rows`` = (offset, n_global) the batch is rows [offset, offset + N) of
+    a global batch of ``n_global`` images: the priorities are drawn (or
+    given) for the whole global batch and these rows are kept, so each
+    image samples as it would in one process."""
+    if priorities is None:
+        n_draw = shape[0] if rows is None else rows[1]
+        priorities = tuple(
+            torch.rand((n_draw,) + tuple(shape[1:]), generator=generator,
+                       device=device) for _ in range(2))
+    if rows is None:
         return priorities
-    return tuple(torch.rand(shape, generator=generator, device=device)
-                 for _ in range(2))
+    lo, n_global = rows
+    for p in priorities:
+        if p.shape[0] != n_global:
+            raise ValueError(
+                f"priorities for {p.shape[0]} images; the global batch has "
+                f"{n_global}")
+    return tuple(p[lo:lo + shape[0]] for p in priorities)
 
 
 def anchor_targets(bbox, bbox_valid, anchors, img_size,
                    cfg: AnchorTargetConfig = AnchorTargetConfig(),
-                   priorities=None, generator=None):
+                   priorities=None, generator=None, rows=None):
     """RPN training targets for a batch.
 
     Args:
@@ -46,6 +61,8 @@ def anchor_targets(bbox, bbox_valid, anchors, img_size,
         cfg: sampling parameters.
         priorities: optional pair of (N, S) uniform tensors (positives,
             negatives); else drawn from ``generator``.
+        rows: optional (offset, n_global): the batch is these rows of a
+            global batch, whose priorities are drawn or given.
 
     Returns:
         loc: (N, S, 4) regression targets (garbage where label != 1).
@@ -53,7 +70,7 @@ def anchor_targets(bbox, bbox_valid, anchors, img_size,
     """
     n, s = bbox.shape[0], anchors.shape[0]
     pri_pos, pri_neg = _priorities(priorities, generator, (n, s),
-                                   anchors.device)
+                                   anchors.device, rows)
     return target_ops.anchor_targets(bbox, bbox_valid, anchors, img_size,
                                      pri_pos, pri_neg, cfg)
 
@@ -63,7 +80,7 @@ def proposal_targets(roi, roi_valid, bbox, label, bbox_valid, mask,
                      loc_normalize_mean=(0.0, 0.0, 0.0, 0.0),
                      loc_normalize_std=(0.1, 0.1, 0.2, 0.2),
                      mask_packed: bool = False, priorities=None,
-                     generator=None):
+                     generator=None, rows=None):
     """Sample rois and build the head's training targets for a batch.
 
     Args:
@@ -74,6 +91,7 @@ def proposal_targets(roi, roi_valid, bbox, label, bbox_valid, mask,
             resolution, or (N, G, H, W/8) bit-packed when ``mask_packed``.
         priorities: optional pair of (N, P + G) uniform tensors
             (positives, negatives); else drawn from ``generator``.
+        rows: optional (offset, n_global), as in :func:`anchor_targets`.
 
     Returns:
         sample_roi: (N, n_sample, 4), positives first.
@@ -83,7 +101,8 @@ def proposal_targets(roi, roi_valid, bbox, label, bbox_valid, mask,
             everywhere for non-positive slots.
     """
     n, p = roi.shape[0], roi.shape[1] + bbox.shape[1]
-    pri_pos, pri_neg = _priorities(priorities, generator, (n, p), roi.device)
+    pri_pos, pri_neg = _priorities(priorities, generator, (n, p), roi.device,
+                                   rows)
     return target_ops.proposal_targets(
         roi, roi_valid, bbox, label, bbox_valid, mask, pri_pos, pri_neg, cfg,
         loc_normalize_mean, loc_normalize_std, mask_packed)

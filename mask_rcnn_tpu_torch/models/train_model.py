@@ -46,6 +46,7 @@ def train_loss(
     roi_sigma: float = 1.0,
     anchor_cfg: AnchorTargetConfig = AnchorTargetConfig(),
     proposal_cfg: ProposalTargetConfig = ProposalTargetConfig(),
+    data_parallel=None,
 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Compute the 5-term Mask R-CNN loss on a padded batch.
 
@@ -62,6 +63,13 @@ def train_loss(
             the target creators' sampling priorities, or the priorities
             themselves: ``{"proposal": (pos, neg), "anchor": (pos, neg)}``
             of uniform (N, P + G) and (N, S) tensors.
+        data_parallel: ``None`` for one process, or the hook of
+            ``parallel/mesh.py::DataParallel`` when this batch is one
+            rank's slice of a global batch: the priorities are drawn (or
+            given) for the global batch and this rank keeps its rows, and
+            each loss is this rank's sum over the count of the global
+            batch (all-reduced), so the ranks' losses and gradients SUM to
+            the global batch's.
 
     Returns:
         (loss, metrics) with the five terms and their sum.
@@ -76,6 +84,7 @@ def train_loss(
         gen, priorities = generator_or_priorities, {}
     else:
         gen, priorities = None, generator_or_priorities
+    rows = None if data_parallel is None else data_parallel.rows(n)
 
     # Masks arrive bit-packed along W (pack_mask_bits); K8 reads either.
     mask_packed = batch["mask"].shape[-1] * 8 == img_size[1]
@@ -98,11 +107,12 @@ def train_loss(
             batch["bbox_valid"], batch["mask"], proposal_cfg,
             cfg.loc_normalize_mean, cfg.loc_normalize_std,
             mask_packed=mask_packed, priorities=priorities.get("proposal"),
-            generator=gen,
+            generator=gen, rows=rows,
         )
         gt_rpn_locs, gt_rpn_labels = anchor_targets(
             batch["bbox"], batch["bbox_valid"], anchors, img_size,
             anchor_cfg, priorities=priorities.get("anchor"), generator=gen,
+            rows=rows,
         )
 
     # Only positives carry mask targets, and proposal_targets compacts them
@@ -118,13 +128,26 @@ def train_loss(
         mask_subset=mask_subset,
     )
 
+    q_masks = gt_masks[:, :q].reshape(n * q, cfg.mask_size, cfg.mask_size)
+    rpn_n = head_n = mask_n = None
+    if data_parallel is not None:
+        # The normalizers count over the global batch: one all-reduce of
+        # the three counts (no gradient flows through them).
+        counts = torch.stack([
+            torch.sum((gt_rpn_labels >= 0).float()),
+            torch.sum((gt_labels >= 0).float()),
+            torch.sum((q_masks >= 0).float()),
+        ])
+        rpn_n, head_n, mask_n = data_parallel.all_reduce(counts)
+
     # ---- RPN losses ----
     rpn_loc_loss = fast_rcnn_loc_loss(
         rpn_locs.reshape(-1, 4).float(), gt_rpn_locs.reshape(-1, 4),
-        gt_rpn_labels.reshape(-1), rpn_sigma,
+        gt_rpn_labels.reshape(-1), rpn_sigma, denom=rpn_n,
     )
     rpn_cls_loss = sigmoid_cross_entropy(
-        rpn_scores.reshape(-1).float(), gt_rpn_labels.reshape(-1)
+        rpn_scores.reshape(-1).float(), gt_rpn_labels.reshape(-1),
+        denom=rpn_n,
     )
 
     # ---- Head losses ----
@@ -135,10 +158,11 @@ def train_loss(
         torch.clamp(gt_labels_flat, min=0)[:, None, None].expand(-1, 1, 4),
     )[:, 0, :]
     roi_loc_loss = fast_rcnn_loc_loss(
-        picked_locs, gt_locs.reshape(-1, 4), gt_labels_flat, roi_sigma
+        picked_locs, gt_locs.reshape(-1, 4), gt_labels_flat, roi_sigma,
+        denom=head_n,
     )
     roi_cls_loss = softmax_cross_entropy(
-        head_out["scores"].float(), gt_labels_flat
+        head_out["scores"].float(), gt_labels_flat, denom=head_n,
     )
 
     # Mask loss over the positive-candidate slots only: the other slots are
@@ -149,9 +173,8 @@ def train_loss(
     picked_masks = torch.gather(
         mask_logits, -1, sel[:, None, None, None].expand(-1, m, m, 1)
     )[..., 0]
-    roi_mask_loss = sigmoid_cross_entropy(
-        picked_masks, gt_masks[:, :q].reshape(n * q, m, m)
-    )
+    roi_mask_loss = sigmoid_cross_entropy(picked_masks, q_masks,
+                                          denom=mask_n)
 
     loss = (
         rpn_loc_loss

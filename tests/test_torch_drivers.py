@@ -88,11 +88,20 @@ def test_native_model_config_mean_restored(monkeypatch, tmp_path):
     assert captured["n_layers"] == 50 and captured["min_size"] == 800
 
 
-def test_train_flags_reject_multi_node():
-    with pytest.raises(SystemExit):
-        train_common.parse_args({}, ["--multi-node"])
+def test_train_flags_reject_multi_node(monkeypatch):
+    """``--multi-node`` parses; outside torchrun's environment
+    ``train_common.train`` fails before it builds anything, naming
+    torchrun."""
     args = train_common.parse_args({"max_epoch": 3.0}, [])
     assert args.device == "cuda" and args.max_epoch == 3.0
+    assert not args.multi_node
+    args = train_common.parse_args({}, ["--multi-node", "--device", "cpu"])
+    assert args.multi_node
+    for k in ("RANK", "WORLD_SIZE", "MASTER_ADDR", "MASTER_PORT",
+              "MASK_RCNN_TORCH_INIT_METHOD"):
+        monkeypatch.delenv(k, raising=False)
+    with pytest.raises(RuntimeError, match="torchrun --nproc-per-node"):
+        train_common.train(args, None, None, ["a"], "coco", 64, 64, (1,))
 
 
 @pytest.fixture(scope="module")
@@ -204,7 +213,7 @@ def test_port_modules_import_without_jax_cv2_pil_yaml_scipy():
     assert int(res.stdout.strip().splitlines()[-1]) >= 40
 
 
-def test_custom_dataset_dir_splits_its_flag(tmp_path):
+def test_custom_dataset_dir_splits_its_flag(tmp_path, monkeypatch):
     """The custom-dataset drivers take ``--dataset-dir`` (images, npy label
     images, class_names.txt) and hand every other argument on."""
     import cv2
@@ -232,5 +241,8 @@ def test_custom_dataset_dir_splits_its_flag(tmp_path):
     assert names == ["x", "y"] and rest == ["--device", "cpu"]
     assert len(dataset) == 2 and dataset.image_sizes() == [(20, 30)] * 2
     assert dataset[1][2].tolist() == [1]
-    with pytest.raises(SystemExit):
+    for k in ("RANK", "WORLD_SIZE", "MASTER_ADDR", "MASTER_PORT",
+              "MASK_RCNN_TORCH_INIT_METHOD"):
+        monkeypatch.delenv(k, raising=False)
+    with pytest.raises(RuntimeError, match="torchrun"):
         custom_train.main(["--dataset-dir", str(tmp_path), "--multi-node"])

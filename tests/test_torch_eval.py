@@ -226,9 +226,20 @@ def test_evaluator_reports_match_jax(stub, kind):
 
 
 def test_evaluator_refuses_multi_process_pooling():
-    with pytest.raises(NotImplementedError, match="data-parallel"):
-        evaluator.InstanceSegmentationEvaluator(StubDataset([]), ["a"],
-                                                pool_detections=True)
+    """``pool_detections`` pools across processes; in one process it is
+    accepted and does nothing (as in the JAX package): the unpooled
+    report."""
+    recs = records(seed=3, n=5)
+    ds = StubDataset(recs)
+    names = ["a", "b", "c"]
+    for kind in ("coco", "voc"):
+        want = evaluator.InstanceSegmentationEvaluator(
+            ds, names, kind=kind, batch_size=2)(RawStub(recs))
+        got = evaluator.InstanceSegmentationEvaluator(
+            ds, names, kind=kind, batch_size=2, pool_detections=True)(
+                RawStub(recs))
+        assert "validation/main/map" in want
+        assert got == want
 
 
 def model_dataset(jmodel):

@@ -185,7 +185,8 @@ def test_train_refuses_a_batch_across_devices(tmp_path):
     ds = make_dataset(n=6)
     loader = TrainLoader(ds, MaskRCNNTransform(64, 64, mean=(0, 0, 0)),
                          batch_size=2, max_boxes=4, min_size=64, max_size=64)
-    with pytest.raises(ValueError, match="one device"):
+    # one process drives one device: a batch of two devices wants torchrun
+    with pytest.raises(ValueError, match="torchrun --nproc-per-node 2"):
         train(tiny_cfg(), loader, str(tmp_path), max_epoch=1.0,
               batch_size_per_device=1, device="cpu")
     loader.batch_size = 3
