@@ -96,14 +96,27 @@ GPU.
    the two ranks over phase 7's images: 2 steps and a checkpoint, a
    resume to step 4, and a pooled COCO evaluation (score threshold 0)
    whose match records and report equal this process's evaluation of the
-   same snapshot; K3 launched too.
+   same snapshot; K3 launched too;
+10. the user's last mile, in this process: (a) phase 8's drivers write
+   their visualization report (3 x 3 panels of (h, 2w) that decode, the
+   seconds it adds to an evaluation); (b) ``examples/demo.py`` from a log
+   dir of the seeded weights (score threshold 0, a PNG of each
+   orientation and a JPEG where a codec imports: numbered outputs of each
+   input's size, each unlike its input), beside a log dir that
+   ``examples/coco/convert_caffe2.py`` writes from a seeded Detectron pkl;
+   (c) ``examples/coco/speedtest.py`` at its defaults, 20 requests, plain
+   and ``--pipeline``; (d) ``examples/summarize_logs.py``, a row for each
+   log dir; K10, K1, K2 and K3 launched in (b)-(d); (e)
+   ``examples/check_train_overfit.py``'s function at its own
+   configuration, 400 steps: finite losses, the last at most 0.75 of the
+   first; K10, K1, K2, K3, K7, K9a and K9b launched.
 
 Prints the card's name and power limit, each path's times, one JSON line
 of kernel results (``launches`` over every main-path run above,
 ``launches_main`` over the default configuration's: the ``align`` serving
-and train runs, the train loop, the entry points and, summed over the
-ranks, the data-parallel bf16 steps and ``train()``), and as its last line
-``{"ok": true, "device": {...}}``.
+and train runs, the train loop, the entry points, summed over the ranks
+the data-parallel bf16 steps and ``train()``, and the last mile), and as
+its last line ``{"ok": true, "device": {...}}``.
 Exits non-zero, and prints no result, when a phase fails or no CUDA device
 is present.
 
@@ -1745,36 +1758,49 @@ def drive_flat_head(torch, kernels):
     return counts, ms
 
 
-class EvalSeconds:
-    """Records the synchronised wall seconds of every
-    ``InstanceSegmentationEvaluator`` call made while it is entered (the
-    drivers build their evaluators themselves)."""
+class CallSeconds:
+    """Records the synchronised wall seconds of every call of ``cls``'s
+    method ``name`` made while it is entered (the drivers build their
+    evaluators, reports and models themselves)."""
 
-    def __init__(self, torch):
-        self.torch, self.seconds = torch, []
+    def __init__(self, torch, cls, name="__call__"):
+        self.torch, self.cls, self.name, self.seconds = torch, cls, name, []
 
     def __enter__(self):
-        from mask_rcnn_tpu_torch.engine import evaluator
-
-        cls = evaluator.InstanceSegmentationEvaluator
-        orig, torch, seconds = cls.__call__, self.torch, self.seconds
+        orig, torch, seconds = getattr(self.cls, self.name), self.torch, \
+            self.seconds
         self.orig = orig
 
-        def timed(ev, model):
+        def timed(obj, *args, **kwargs):
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            report = orig(ev, model)
+            out = orig(obj, *args, **kwargs)
             torch.cuda.synchronize()
             seconds.append(time.perf_counter() - t0)
-            return report
+            return out
 
-        cls.__call__ = timed
+        setattr(self.cls, self.name, timed)
         return self
 
     def __exit__(self, *exc):
-        from mask_rcnn_tpu_torch.engine import evaluator
+        setattr(self.cls, self.name, self.orig)
 
-        evaluator.InstanceSegmentationEvaluator.__call__ = self.orig
+
+def eval_seconds(torch):
+    """:class:`CallSeconds` of every ``InstanceSegmentationEvaluator``
+    call."""
+    from mask_rcnn_tpu_torch.engine.evaluator import (
+        InstanceSegmentationEvaluator,
+    )
+
+    return CallSeconds(torch, InstanceSegmentationEvaluator)
+
+
+def vis_seconds(torch):
+    """:class:`CallSeconds` of every ``VisReport`` call."""
+    from mask_rcnn_tpu_torch.engine.evaluator import VisReport
+
+    return CallSeconds(torch, VisReport)
 
 
 LOOP_HW = (480, 640)  # the train loop's images, before resizing
@@ -1867,7 +1893,7 @@ def drive_train_loop(torch, kernels):
     assert loader().position_for_step(4) == (0, 4)
     for wrapper in kernels:
         wrapper.launches = 0
-    with EvalSeconds(torch) as ev, \
+    with eval_seconds(torch) as ev, \
             tempfile.TemporaryDirectory(prefix="mrcnn_train_") as tmp:
         run_a, run_b = os.path.join(tmp, "a"), os.path.join(tmp, "b")
         t0 = time.perf_counter()
@@ -1967,11 +1993,29 @@ def same_params(torch, a, b):
     return set(fa) == set(fb) and all(torch.equal(fa[k], fb[k]) for k in fa)
 
 
-def drive_dataset_drivers(torch, train_mod, evaluate_mod, argv, n_eval):
+def check_tiles(out, tile_shape, iterations):
+    """The visualization report's tiles under ``out``: one
+    ``iteration=%08d.jpg`` for each of ``iterations`` and ``latest.jpg``,
+    each decoding to an RGB image of ``tile_shape``."""
+    from mask_rcnn_tpu_torch.data._image import read_rgb
+
+    vis = os.path.join(out, "visualizations")
+    want = sorted([f"iteration={int(i):08d}.jpg" for i in iterations]
+                  + ["latest.jpg"])
+    assert sorted(os.listdir(vis)) == want, (os.listdir(vis), want)
+    for name in want:
+        tile = read_rgb(os.path.join(vis, name))
+        assert tile.shape == tile_shape, (name, tile.shape, tile_shape)
+
+
+def drive_dataset_drivers(torch, train_mod, evaluate_mod, argv, n_eval,
+                          tile_shape):
     """One dataset's train driver, then its evaluate driver on the log dir
-    the first wrote; checks the artifacts and the losses. Returns the
-    train result, the evaluate report and their times."""
-    with EvalSeconds(torch) as ev:
+    the first wrote; checks the artifacts, the losses and the
+    visualization tiles (each of ``tile_shape``): one a training
+    evaluation, and the evaluate driver's ``iteration=00000000.jpg``.
+    Returns the train result, the evaluate report and their times."""
+    with eval_seconds(torch) as ev, vis_seconds(torch) as vs:
         t0 = time.perf_counter()
         result = train_mod.main(argv)
         torch.cuda.synchronize()
@@ -1986,19 +2030,28 @@ def drive_dataset_drivers(torch, train_mod, evaluate_mod, argv, n_eval):
             for k, v in e.items():
                 if k.startswith("main/"):
                     assert np.isfinite(v), f"{k} at {e['iteration']}: {v}"
-        assert [e for e in entries if "validation/main/map" in e], entries
+        evals = [e["iteration"] for e in entries
+                 if "validation/main/map" in e]
+        assert evals, entries
+        check_tiles(out, tile_shape, evals)
         n_train_evals = len(ev.seconds)
+        n_train_vis = len(vs.seconds)
+        assert n_train_vis == n_train_evals, (vs.seconds, ev.seconds)
         report = evaluate_mod.main([out, "--device", "cuda"])
         assert "validation/main/map" in report, report
         assert os.path.exists(os.path.join(
             out, "snapshot_model.npz.eval_result.yaml"))
+        check_tiles(out, tile_shape, [0] + evals)
     steps = result["iterations"]
     return result, report, {
         "ms_per_step_b1": (result["elapsed"] - sum(
-            ev.seconds[:n_train_evals])) * 1e3 / steps,
+            ev.seconds[:n_train_evals]) - sum(
+            vs.seconds[:n_train_vis])) * 1e3 / steps,
         "steps": steps,
         "train_wall_s": t_train,
         "eval_s_per_img": [t / n_eval for t in ev.seconds],
+        "vis_s": vs.seconds,
+        "tile_shape": list(tile_shape),
         "losses": {k: v for k, v in losses[-1].items()
                    if k.startswith("main/")},
     }
@@ -2015,10 +2068,12 @@ def drive_entry_points(torch, kernels):
     params as 'imagenet:<npz>'. (c) The COCO train driver
     (``examples.coco.train.main``) at its defaults, batch 1, float32,
     ``--pretrained-model auto``, 8 steps and one evaluation on the port's
-    synthetic 480x640 PNG root, then the evaluate driver on its log dir;
-    (d) the VOC/SBD drivers the same way on the port's SBD root when a
-    JPEG codec is present. Returns the launch counts of the phase and its
-    numbers."""
+    synthetic 480x640 PNG root (9 minival images), then the evaluate
+    driver on its log dir; (d) the VOC/SBD drivers the same way on the
+    port's SBD root when a JPEG codec is present. The drivers draw their
+    visualization report (phase 10 (a)): the tiles must decode to 3 x 3
+    panels of (h, 2w) for COCO, 1 x 2 for SBD's 2 val images. Returns the
+    launch counts of the phase and its numbers."""
     import tempfile
 
     from mask_rcnn_tpu_torch.data import _image
@@ -2100,16 +2155,20 @@ def drive_entry_points(torch, kernels):
             del auto, explicit
 
             # (c) the COCO drivers on a PNG root
+            # 9 minival images: the visualization report's 9 panels of
+            # (h, 2w), a 3 x 3 tile
             root = make_synthetic_coco_root(
                 os.path.join(tmp, "coco"), n_train=8, n_valminusminival=2,
-                n_minival=4, height=COCO_ROOT_HW[0], width=COCO_ROOT_HW[1],
+                n_minival=9, height=COCO_ROOT_HW[0], width=COCO_ROOT_HW[1],
                 seed=SEED)
             os.environ["COCO_ROOT"] = root
+            h, w = COCO_ROOT_HW
             result, report, coco = drive_dataset_drivers(
                 torch, coco_train, coco_evaluate,
                 ["--pretrained-model", "auto", "--max-epoch", "0.8",
                  "--eval-interval-epochs", "0.8", "--logs-dir",
-                 os.path.join(tmp, "logs"), "--device", "cuda"], n_eval=4)
+                 os.path.join(tmp, "logs"), "--device", "cuda"], n_eval=9,
+                tile_shape=(3 * h, 3 * 2 * w, 3))
             assert result["iterations"] == 8, result
             coco["report"] = report
             numbers["coco"] = coco
@@ -2125,11 +2184,12 @@ def drive_entry_points(torch, kernels):
                     os.path.join(tmp, "sbd"), n_train=4, n_val=2,
                     height=SBD_ROOT_HW[0], width=SBD_ROOT_HW[1], seed=SEED)
                 os.environ["SBD_ROOT"] = root
+                h, w = SBD_ROOT_HW
                 _, report, sbd = drive_dataset_drivers(
                     torch, voc_train, voc_evaluate,
                     ["--max-epoch", "1", "--logs-dir",
                      os.path.join(tmp, "logs_sbd"), "--device", "cuda"],
-                    n_eval=2)
+                    n_eval=2, tile_shape=(h, 2 * 2 * w, 3))
                 sbd["report"] = report
                 numbers["sbd"] = sbd
         torch.cuda.synchronize()
@@ -2146,11 +2206,175 @@ def drive_entry_points(torch, kernels):
           f"{ {k: round(v, 3) for k, v in numbers['import_s'].items()} }; "
           f"COCO train driver {numbers['coco']['ms_per_step_b1']:.3f} "
           f"ms/step (batch 1, float32, 8 steps at 800x1067, evaluation "
-          f"excluded), evaluation "
+          f"and visualization excluded), evaluation "
           f"{[round(x, 4) for x in numbers['coco']['eval_s_per_img']]} "
-          f"s/img (4 minival images: in training, then the evaluate "
+          f"s/img (9 minival images: in training, then the evaluate "
           f"driver); JPEG decoder {numbers['jpeg_decoder']}")
+    print("phase 10 (a), the drivers' visualization report (VisReport, "
+          "9 panels at score threshold 0.7, a "
+          f"{numbers['coco']['tile_shape']} tile): "
+          f"{[round(x, 4) for x in numbers['coco']['vis_s']]} s after "
+          "each evaluation (in training, then the evaluate driver), beside "
+          f"{[round(x, 4) for x in numbers['coco']['eval_s_per_img']]} "
+          "s/img of evaluation")
     return counts, numbers
+
+
+OVERFIT_STEPS = 400  # check_train_overfit.py's own count
+OVERFIT_RATIO = 0.75  # the last logged loss at most this share of the first
+
+
+def demo_images(rng, jpeg):
+    """Phase 10's demo inputs: (name, (H, W, 3) uint8) of a landscape and a
+    portrait PNG and, where a codec imports, a JPEG; noise with coloured
+    rectangles."""
+    shapes = [("land.png", 480, 640), ("port.png", 640, 480)]
+    if jpeg:
+        shapes.append(("photo.jpg", 427, 640))
+    out = []
+    for name, h, w in shapes:
+        img = rng.randint(0, 100, (h, w, 3)).astype(np.uint8)
+        for _ in range(3):
+            y, x = rng.randint(0, h // 2), rng.randint(0, w // 2)
+            img[y:y + h // 4, x:x + w // 4] = rng.randint(100, 256, 3)
+        out.append((name, img))
+    return out
+
+
+def drive_last_mile(torch, serve_kernels, train_kernels):
+    """Phase 10: the user's last mile at full width (R-50-C4, 80 classes,
+    anchor scales (2, 4, 8, 16, 32), min 800 / max 1333), in a temporary
+    directory. (a) is phase 8's drivers' visualization report. (b) The
+    seeded weights as a log dir (``save_params`` + ``params.yaml``), and a
+    seeded Detectron pkl through ``examples/coco/convert_caffe2.py`` as a
+    second; ``examples/demo.py`` on the first at score threshold 0 over a
+    PNG of each orientation and a JPEG where a codec imports: numbered
+    outputs of each input's size, each unlike its input. (c)
+    ``examples/coco/speedtest.py`` at its defaults (bf16, a 640x1066
+    random image) with 20 requests, plain and ``--pipeline``. (d)
+    ``examples/summarize_logs.py`` over the phase's logs: a row for each
+    log dir. (b)-(d) must launch every kernel of ``serve_kernels``. (e)
+    ``examples/check_train_overfit.py``'s function at its own
+    configuration (2 classes, 256x320, float32, batch 2): 400 steps, every
+    logged loss finite and the last at most 0.75 of the first; it must
+    launch every kernel of ``train_kernels``. Returns the two windows'
+    launch counts and the phase's numbers."""
+    import tempfile
+
+    from mask_rcnn_tpu_torch import MaskRCNNResNet
+    from mask_rcnn_tpu_torch.data import _image
+    from mask_rcnn_tpu_torch.examples import demo, summarize_logs
+    from mask_rcnn_tpu_torch.examples.check_train_overfit import run_overfit
+    from mask_rcnn_tpu_torch.examples.coco import convert_caffe2, speedtest
+    from mask_rcnn_tpu_torch.utils.checkpoint import save_params
+    from mask_rcnn_tpu_torch.utils.logging import dump_params
+    from tests.torch_import_cases import write_detectron_pkl
+
+    t_phase = time.perf_counter()
+    numbers = {}
+    for wrapper in serve_kernels:
+        wrapper.launches = 0
+    with tempfile.TemporaryDirectory(prefix="mrcnn_last_mile_") as tmp:
+        # (b) two log dirs, then the demo on the seeded one
+        logs = os.path.join(tmp, "logs")
+        seeded = os.path.join(logs, "seeded")
+        os.makedirs(seeded)
+        model, _ = construct(torch, None, rng_seed=SEED)
+        save_params(os.path.join(seeded, "snapshot_model.npz"), model.params)
+        dump_params(seeded, {"dataset": "coco", "model": "resnet50",
+                             "model_config": dict(
+                                 n_fg_class=N_CLASS_FG, n_layers=50,
+                                 min_size=ENTRY_SIZES[0],
+                                 max_size=ENTRY_SIZES[1],
+                                 anchor_scales=[2, 4, 8, 16, 32],
+                                 roi_size=14, pooling="align")})
+        del model
+        pkl = os.path.join(tmp, "model_final.pkl")
+        write_detectron_pkl(pkl, n_fg=N_CLASS_FG, n_anchor=15, seed=SEED)
+        convert_caffe2.main([pkl, "--out",
+                             os.path.join(logs, "R-50-C4_x1_caffe2")])
+
+        rng = np.random.RandomState(SEED + 10)
+        inputs = demo_images(rng, _image.jpeg_decoder() is not None)
+        paths = []
+        for name, img in inputs:
+            path = os.path.join(tmp, name)
+            if name.endswith(".png"):
+                _image.write_png(path, img)
+            else:
+                _image.write_jpeg(path, img)
+            paths.append(path)
+        out = os.path.join(tmp, "demo_out")
+        with CallSeconds(torch, MaskRCNNResNet, "predict") as pred:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            written = demo.main([seeded, "--images", *paths,
+                                 "--score-thresh", "0", "--out", out,
+                                 "--device", "cuda"])
+            t_demo = time.perf_counter() - t0
+        names = [os.path.basename(p) for p in written]
+        assert names == [f"{i:03d}_{os.path.basename(p)}"
+                         for i, p in enumerate(paths)], names
+        for src, dst in zip(paths, written):
+            a, b = _image.read_rgb(src), _image.read_rgb(dst)
+            assert a.shape == b.shape, (src, a.shape, b.shape)
+            assert (a != b).any(), f"{dst} equals its input"
+        n = len(paths)
+        numbers["demo"] = {
+            "images": names, "wall_s": t_demo,
+            "ms_per_img": t_demo * 1e3 / n,
+            "predict_ms_per_img": sum(pred.seconds) * 1e3 / n}
+        print(f"phase 10 (b), demo (float32: a log dir's model) on {n} "
+              f"images {[img.shape for _, img in inputs]}: {t_demo:.3f} s "
+              f"in all, {t_demo * 1e3 / n:.3f} ms/img with the model build, "
+              f"drawing and writing; predict "
+              f"{numbers['demo']['predict_ms_per_img']:.3f} ms/img "
+              f"(chunks of 2: {[round(x, 4) for x in pred.seconds]} s)")
+
+        # (c) speedtest at its defaults, 20 requests
+        numbers["speedtest"] = {
+            mode: speedtest.main(["--n-times", "20", "--device", "cuda"]
+                                 + flags)["ms"]
+            for mode, flags in (("plain", []), ("pipeline", ["--pipeline"]))}
+
+        # (d) summarize_logs over the phase's logs
+        rows = summarize_logs.main([logs])
+        assert [r["log_dir"] for r in rows] == ["R-50-C4_x1_caffe2",
+                                                "seeded"], rows
+        torch.cuda.synchronize()
+        serve_counts = {w.__name__: w.launches for w in serve_kernels}
+        require_launched(serve_counts, "last mile: demo, speedtest, "
+                         "summarize_logs")
+
+    # (e) the overfit check at its own configuration
+    for wrapper in train_kernels:
+        wrapper.launches = 0
+    overfit = run_overfit(OVERFIT_STEPS, device="cuda", log_every=50)
+    torch.cuda.synchronize()
+    train_counts = {w.__name__: w.launches for w in train_kernels}
+    require_launched(train_counts, "last mile: the overfit check")
+    losses = [m["loss"] for _, m in overfit["losses"]]
+    for it, m in overfit["losses"]:
+        for k, v in m.items():
+            assert np.isfinite(v), f"overfit step {it}: {k} = {v}"
+    ratio = overfit["last"] / overfit["first"]
+    numbers["overfit"] = {
+        "steps": OVERFIT_STEPS, "seconds": overfit["seconds"],
+        "ms_per_step": overfit["seconds"] * 1e3 / OVERFIT_STEPS,
+        "loss": [(it, round(m["loss"], 4)) for it, m in overfit["losses"]],
+        "last_over_first": ratio,
+        "detections": len(overfit["detections"][0])}
+    print(f"phase 10 (e), overfit (2 classes, 256x320, float32, batch 2): "
+          f"{OVERFIT_STEPS} steps in {overfit['seconds']:.3f} s "
+          f"({numbers['overfit']['ms_per_step']:.3f} ms/step), loss "
+          f"{losses[0]:.4f} -> {losses[-1]:.4f} (ratio {ratio:.4f}, limit "
+          f"{OVERFIT_RATIO}), {numbers['overfit']['detections']} detections "
+          "on image 0 at score threshold 0.3")
+    assert ratio <= OVERFIT_RATIO, \
+        f"the overfit loss fell to {ratio:.4f} of its first value only"
+    numbers["seconds"] = time.perf_counter() - t_phase
+    print(f"phase 10 (b)-(e): {numbers['seconds']:.3f} s")
+    return serve_counts, train_counts, numbers
 
 
 def kernel_group(name):
@@ -3151,7 +3375,8 @@ def main(argv=None) -> int:
     # Each main path runs with its kernels' counts set to 0 just before it
     # and read just after; a kernel's "launches" sums its main-path runs,
     # "launches_main" those of the default configuration (pooling="align"):
-    # the align serving and train runs, the driver and the entry points.
+    # the align serving and train runs, the driver, the entry points, the
+    # data-parallel bf16 steps and train(), and the last mile.
     pool_fwd = {"align": roi_align.roi_align_grouped,
                 "resize": roi_align.crop_and_resize,
                 "pooling": roi_align.roi_pool}
@@ -3212,6 +3437,15 @@ def main(argv=None) -> int:
     for name, c in counts_main.items():
         launches_main[name] = launches_main.get(name, 0) + c
     data_parallel["launches"] = counts
+    serve_counts, train_counts, last_mile = drive_last_mile(
+        torch, (resnet.stem_forward, roi_align.roi_align_grouped,
+                nms.nms_blocked, nms.decode_select),
+        (resnet.stem_forward, roi_align.roi_align_grouped, nms.nms_blocked,
+         nms.decode_select, roi_align.roi_align_grouped_backward,
+         targets.anchor_targets, targets.proposal_targets))
+    count(serve_counts, True)
+    count(train_counts, True)
+    last_mile["launches"] = {"serve": serve_counts, "train": train_counts}
     for name, entry in results.items():
         # nms_small serves no main path since decode_select took the decode
         entry["launches"] = launches.get(name, 0)
@@ -3220,7 +3454,8 @@ def main(argv=None) -> int:
     print(json.dumps({"serving": serving, "training": training,
                       "flat_head_ms_fwd_bwd": flat_ms, "train_loop": loop,
                       "entry_points": entry_points,
-                      "data_parallel": data_parallel, "card": smi}))
+                      "data_parallel": data_parallel,
+                      "last_mile": last_mile, "card": smi}))
     order = ("roi_align_grouped", "nms_blocked", "nms_small",
              "decode_select", "roi_align_grouped_backward", "anchor_targets",
              "proposal_targets", "crop_and_resize",

@@ -278,6 +278,20 @@ class COCOInstanceSegmentationDataset:
             for i in self.img_ids
         ]
 
+    def download(self):
+        """Nothing is fetched: print the sources, and md5-verify any
+        archive already under the root (reference behavior:
+        cached_download with md5, datasets/coco.py:24-50)."""
+        from mask_rcnn_tpu_torch.data._download import (
+            print_sources_and_verify,
+        )
+
+        print_sources_and_verify(
+            self.root,
+            [(name, url, md5)
+             for name, (url, md5) in self.DOWNLOAD_URLS.items()],
+        )
+
     def get_example(self, i: int):
         img_id = self.img_ids[i]
         info = self.images[img_id]

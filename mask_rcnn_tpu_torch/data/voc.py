@@ -7,7 +7,8 @@ examples/custom_dataset (VOCLikeDataset): examples are
 masks (R, H, W) i32)``. Images are read by ``data/_image.py::read_rgb``
 (JPEG needs cv2 or PIL), label PNGs by its PNG decoder, image sizes from
 the file headers, SBD's ``.mat`` files by a lazily imported ``scipy.io``.
-Nothing is downloaded: ``DOWNLOAD_ARCHIVES`` only names the archives.
+Nothing is downloaded: ``download()`` prints ``DOWNLOAD_ARCHIVES`` and
+md5-checks the archives already on disk (``data/_download.py``).
 """
 
 from __future__ import annotations
@@ -16,6 +17,7 @@ import os.path as osp
 
 import numpy as np
 
+from mask_rcnn_tpu_torch.data._download import print_sources_and_verify
 from mask_rcnn_tpu_torch.data._image import image_size, read_png, read_rgb
 from mask_rcnn_tpu_torch.utils.geometry import label2instance_boxes
 
@@ -65,6 +67,10 @@ class VOC2012InstanceSegmentationDataset:
             "6cd6e144f989b92b3379bac3b3de84fd",
         ),
     )
+
+    @classmethod
+    def download(cls, root: str = "~/data/datasets/VOC"):
+        print_sources_and_verify(root, cls.DOWNLOAD_ARCHIVES)
 
     def __init__(self, split: str = "train",
                  root: str = "~/data/datasets/VOC/VOCdevkit/VOC2012"):
@@ -122,6 +128,10 @@ class SBDInstanceSegmentationDataset:
             "82b4d87ceb2ed10f6038a1cba92111cb",
         ),
     )
+
+    @classmethod
+    def download(cls, root: str = "~/data/datasets/VOC"):
+        print_sources_and_verify(root, cls.DOWNLOAD_ARCHIVES)
 
     def __init__(self, split: str = "train",
                  root: str = "~/data/datasets/VOC/benchmark_RELEASE/dataset",

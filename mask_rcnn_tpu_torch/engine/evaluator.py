@@ -5,12 +5,14 @@ In a process group (``parallel/mesh.py``) each rank scores a strided shard
 of the dataset; the ranks exchange failure flags first, then either pool
 their match records (``pool_detections``: the exact global metric) or
 average their reports (the reference's chainermn evaluator), as the JAX
-package does (its evaluator.py:245-399). ``VisReport`` (cv2 drawing) comes
-with the command-line tools.
+package does (its evaluator.py:245-399). ``VisReport`` draws ground truth
+beside predictions with cv2 (``utils/visualizations.py``).
 """
 
 from __future__ import annotations
 
+import os
+import os.path as osp
 import queue as queue_mod
 import threading
 import warnings
@@ -18,8 +20,14 @@ from typing import Dict, Optional, Sequence
 
 import numpy as np
 
+from mask_rcnn_tpu_torch.data._image import write_jpeg
 from mask_rcnn_tpu_torch.parallel.mesh import process_count, process_index
 from mask_rcnn_tpu_torch.utils.cocoeval import COCOEvaluation
+from mask_rcnn_tpu_torch.utils.visualizations import (
+    get_tile_image,
+    require_cv2,
+    visualize_instance_segmentation,
+)
 from mask_rcnn_tpu_torch.utils.voc_eval import VOCEvaluation
 
 
@@ -352,3 +360,49 @@ class InstanceSegmentationEvaluator:
             warnings.simplefilter("ignore", RuntimeWarning)  # all-NaN cols
             mean = np.nanmean(gathered, axis=0)
         return self._vector_to_report(mean)
+
+
+class VisReport:
+    """GT-vs-prediction tile renderer (reference
+    extensions/instance_segmentation_vis_report.py:16-98), the port of the
+    JAX package's ``VisReport``: one (GT | prediction) panel for each of
+    ``indices``, tiled, written to ``<out_dir>/visualizations/`` as
+    ``iteration=%08d.jpg`` and ``latest.jpg``.
+
+    The drawing needs cv2 (which also writes the JPEG): the constructor
+    imports it, so a training run without it fails before its first step
+    and not at its first evaluation. No collective runs inside: in a
+    process group only rank 0 calls it (``engine/loop.py``)."""
+
+    def __init__(self, dataset, class_names, out_dir,
+                 indices: Sequence[int] = (0, 1, 2, 3, 4, 5, 6, 7, 8),
+                 score_thresh: float = 0.7):
+        require_cv2()
+        self.dataset = dataset
+        self.class_names = list(class_names)
+        self.out_dir = out_dir
+        self.indices = [i for i in indices if i < len(dataset)]
+        self.score_thresh = score_thresh
+
+    def __call__(self, model, iteration: int = 0):
+        panels = []
+        for i in self.indices:
+            e = self.dataset[i]
+            img = e[0]
+            chw = img.transpose(2, 0, 1).astype(np.float32)
+            bboxes, masks, labels, scores = model.predict([chw])
+            keep = scores[0] >= self.score_thresh
+            panel = visualize_instance_segmentation(
+                img, e[1], e[2], np.asarray(e[3], bool),
+                bboxes[0][keep], labels[0][keep], masks[0][keep],
+                scores[0][keep], n_class=len(self.class_names),
+            )
+            panels.append(panel)
+        if not panels:
+            return None
+        tile = get_tile_image(panels)
+        vis_dir = osp.join(self.out_dir, "visualizations")
+        os.makedirs(vis_dir, exist_ok=True)
+        write_jpeg(osp.join(vis_dir, "iteration=%08d.jpg" % iteration), tile)
+        write_jpeg(osp.join(vis_dir, "latest.jpg"), tile)
+        return tile

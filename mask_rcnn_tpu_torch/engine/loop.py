@@ -17,7 +17,8 @@ of a part interval, periodic evaluation, the best-mAP ``snapshot_model.npz``
 pkl, chainer snapshot, bridge npz). Data parallelism is the default
 process group's (``parallel/mesh.py``; the JAX package's global mesh):
 each rank feeds its slice of the global batch, the params start from rank
-0's, and only rank 0 writes. Not here yet: the visualization report.
+0's, and only rank 0 writes, the visualization report's tiles
+(``vis_report``) included.
 """
 
 from __future__ import annotations
@@ -31,7 +32,10 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
-from mask_rcnn_tpu_torch.engine.evaluator import InstanceSegmentationEvaluator
+from mask_rcnn_tpu_torch.engine.evaluator import (
+    InstanceSegmentationEvaluator,
+    VisReport,
+)
 from mask_rcnn_tpu_torch.engine.trainer import (
     create_train_state,
     make_optimizer,
@@ -48,6 +52,7 @@ from mask_rcnn_tpu_torch.parallel.mesh import (
     make_parallel_train_step,
     process_count,
     process_index,
+    process_zero,
 )
 from mask_rcnn_tpu_torch.utils.checkpoint import (
     restore_train_state,
@@ -80,6 +85,7 @@ def train(
     max_epoch: float,
     batch_size_per_device: Optional[int] = None,
     evaluator: Optional[InstanceSegmentationEvaluator] = None,
+    vis_report: Optional[VisReport] = None,
     eval_interval_epochs: float = 1.0,
     log_interval: int = 20,
     seed: int = 0,
@@ -104,7 +110,8 @@ def train(
     world size, and the loader must slice it per process
     (``TrainLoader(process_index=, process_count=)``). Every rank
     evaluates its shard; rank 0 alone writes ``params.yaml``, the log and
-    its plots, the checkpoints and the snapshots. ``pretrained_model``
+    its plots, the checkpoints and the snapshots, and after each
+    evaluation draws ``vis_report``'s tile. ``pretrained_model``
     takes the specs of ``resolve_pretrained_params`` ('auto' keeps the RPN
     and branch values drawn from ``seed`` with ``initializer``).
     ``resume_from`` is a ``train_state`` directory that
@@ -226,7 +233,8 @@ def train(
 
             if evaluator is not None and it % eval_every == 0:
                 # every rank scores its shard; the report is the global one
-                report = _evaluate(cfg, state, evaluator, device)
+                report = _evaluate(cfg, state, evaluator, vis_report, it,
+                                   device)
                 cur = report.get("validation/main/map", -1)
                 if cur > best_map:
                     best_map = cur
@@ -258,8 +266,15 @@ def train(
             "elapsed": time.time() - t_start}
 
 
-def _evaluate(cfg, state, evaluator, device):
+def _evaluate(cfg, state, evaluator, vis_report, iteration, device):
     """Score the in-training params: a model over the float32 masters (cast
-    to the compute dtype once per evaluation)."""
+    to the compute dtype once per evaluation). After the (pooled)
+    evaluation rank 0 draws the visualization at the report's score
+    threshold, then restores the evaluation's 0.05."""
     model = MaskRCNNResNet.from_config(cfg, state.params, device=device)
-    return evaluator(model)
+    report = evaluator(model)
+    if vis_report is not None and process_zero():
+        model.score_thresh = vis_report.score_thresh
+        vis_report(model, iteration)
+        model.score_thresh = 0.05
+    return report

@@ -1,7 +1,9 @@
-"""Command-line drivers, the port of the JAX package's ``examples/``:
-train and evaluate on COCO (``examples.coco``), VOC/SBD
-(``examples.voc``) and a directory of images with label images
-(``examples.custom_dataset``), each runnable as
-``python -m mask_rcnn_tpu_torch.examples.<dataset>.<train|evaluate>`` and
-callable as ``main(argv)``. Visualization (``VisReport``, the demos) comes
-in a later slice."""
+"""Command-line tools, the port of the JAX package's ``examples/``: train
+and evaluate on COCO (``examples.coco``), VOC/SBD (``examples.voc``) and a
+directory of images with label images (``examples.custom_dataset``), the
+demos (``<dataset>.demo``), ``coco.speedtest``, ``coco.convert_caffe2``,
+``<coco|voc>.download_datasets``, ``view_dataset``, ``summarize_logs``,
+the rehearsals (``check_coco_rehearsal``, ``check_voc_rehearsal``) and
+the overfit checks (``check_train_overfit``, ``check_overfit_map``). Each
+runs as ``python -m mask_rcnn_tpu_torch.examples.<name>`` and is callable
+as ``main(argv)``."""

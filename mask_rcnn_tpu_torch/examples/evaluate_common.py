@@ -2,8 +2,9 @@
 reference's examples/evaluate_common.py): rebuild the model from a log
 dir's ``params.yaml`` and snapshot (``log_dir.py``), evaluate over the
 test set, write ``snapshot_model.npz.eval_result.yaml`` (as JSON, which
-is valid YAML). The visualizations of selected examples come in a later
-slice with ``VisReport``.
+is valid YAML); before that, draw the examples ``indices_vis`` into
+``<log dir>/visualizations/`` (``VisReport`` at score threshold 0.7, which
+needs cv2).
 """
 
 from __future__ import annotations
@@ -39,8 +40,10 @@ def evaluate(test_data, class_names, dataset_kind, indices_vis=None,
     )
     args = parser.parse_args(argv)
 
+    from mask_rcnn_tpu_torch.data import IndexingDataset
     from mask_rcnn_tpu_torch.engine.evaluator import (
         InstanceSegmentationEvaluator,
+        VisReport,
     )
     from mask_rcnn_tpu_torch.examples.log_dir import (
         build_model_from_log_dir,
@@ -58,8 +61,15 @@ def evaluate(test_data, class_names, dataset_kind, indices_vis=None,
         # padding) — strict mode removes it too.
         model.pad_to_bucket = False
     if indices_vis:
-        print("visualization (VisReport) comes in a later slice of the "
-              "port: no visualizations are written")
+        indices_vis = [i for i in indices_vis if i < len(test_data)]
+    if indices_vis:
+        vis = VisReport(
+            IndexingDataset(test_data, indices_vis), class_names,
+            args.log_dir, indices=range(len(indices_vis)),
+        )
+        model.score_thresh = vis.score_thresh
+        vis(model)
+        model.score_thresh = 0.05
 
     evaluator = InstanceSegmentationEvaluator(
         test_data, class_names, kind=dataset_kind,

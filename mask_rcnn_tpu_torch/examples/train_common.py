@@ -11,9 +11,10 @@ The same flags: --model {resnet50,resnet101}, --pooling-func
 ``torchrun --nproc-per-node N`` (``parallel/mesh.py::init_distributed``:
 ``cuda:{LOCAL_RANK}``, NCCL; gloo on the CPU): each rank's loader takes its
 slice of every global batch of ``N * --batch-size-per-gpu`` images, and
---pool-detections pools the ranks' evaluation records. No visualization
-report is written yet (``VisReport`` draws with cv2; it comes in a later
-slice).
+--pool-detections pools the ranks' evaluation records. After each
+evaluation rank 0 writes the visualization report's tile of the first 9
+test examples (``VisReport``, which needs cv2) to
+``<log dir>/visualizations/``.
 """
 
 from __future__ import annotations
@@ -130,6 +131,7 @@ def train(args, train_data, test_data, class_names, dataset_kind,
     from mask_rcnn_tpu_torch.data import MaskRCNNTransform, TrainLoader
     from mask_rcnn_tpu_torch.engine.evaluator import (
         InstanceSegmentationEvaluator,
+        VisReport,
     )
     from mask_rcnn_tpu_torch.engine.loop import train as run_train
     from mask_rcnn_tpu_torch.models.mask_rcnn import MaskRCNNConfig
@@ -182,9 +184,10 @@ def train(args, train_data, test_data, class_names, dataset_kind,
 
         dist.broadcast_object_list(out_dir, src=0)
     out_dir = out_dir[0]
+    # only rank 0 draws (train() calls the report on rank 0 alone)
+    vis = (VisReport(test_data, class_names, out_dir)
+           if process_index() == 0 else None)
     print(f"logs -> {out_dir}")
-    print("visualization (VisReport) comes in a later slice of the port: "
-          "no visualizations are written")
     result = run_train(
         cfg,
         loader,
@@ -192,6 +195,7 @@ def train(args, train_data, test_data, class_names, dataset_kind,
         max_epoch=args.max_epoch,
         batch_size_per_device=args.batch_size_per_gpu,
         evaluator=evaluator,
+        vis_report=vis,
         eval_interval_epochs=args.eval_interval_epochs,
         seed=args.seed,
         lr=args.lr,

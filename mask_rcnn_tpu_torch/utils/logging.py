@@ -41,11 +41,11 @@ def timestamp_dir(base: str) -> str:
     return out
 
 
-def load_params_yaml(log_dir: str) -> Dict:
-    """Read a log dir's ``params.yaml``: the port's (JSON) without pyyaml;
-    a YAML one (a JAX package's or reference log dir) through a lazily
+def load_yaml(path: str):
+    """Read a YAML file the port or the JAX package wrote: JSON (what the
+    port writes, valid YAML) without pyyaml; YAML proper through a lazily
     imported pyyaml."""
-    with open(osp.join(log_dir, "params.yaml")) as f:
+    with open(path) as f:
         text = f.read()
     try:
         return json.loads(text)
@@ -55,10 +55,16 @@ def load_params_yaml(log_dir: str) -> Dict:
         import yaml
     except ImportError as e:
         raise ImportError(
-            f"{osp.join(log_dir, 'params.yaml')} is YAML, not the JSON the "
-            "port writes; reading it needs pyyaml, which is not installed"
+            f"{path} is YAML, not the JSON the port writes; reading it "
+            "needs pyyaml, which is not installed"
         ) from e
     return yaml.safe_load(text)
+
+
+def load_params_yaml(log_dir: str) -> Dict:
+    """Read a log dir's ``params.yaml`` (:func:`load_yaml`): the port's
+    without pyyaml, a JAX package's or reference log dir's through it."""
+    return load_yaml(osp.join(log_dir, "params.yaml"))
 
 
 def dump_params(out_dir: str, params: Dict) -> None:
