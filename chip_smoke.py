@@ -109,7 +109,19 @@ GPU.
    log dir; K10, K1, K2 and K3 launched in (b)-(d); (e)
    ``examples/check_train_overfit.py``'s function at its own
    configuration, 400 steps: finite losses, the last at most 0.75 of the
-   first; K10, K1, K2, K3, K7, K9a and K9b launched.
+   first; K10, K1, K2, K3, K7, K9a and K9b launched;
+11. the profiling layer and the last two checks, in this process: (a)
+   ``utils/profiling.py::time_fn_chained`` on K1 (1000 rois) and K2 (6000
+   -> 1000) within 25% of the profiler's device time of the same call and
+   of phase 2's CUDA-event time, and
+   ``time_train_steps_chained`` on the align b2 bf16 step beside phase 5's
+   times; (b) ``mfu_report`` (R-50), ``train_profile`` (bf16 and float32),
+   ``head_profile`` and ``bench_align_variants`` at their default shapes
+   (timing depth cut): finite rows, every launched kernel's cost reported,
+   K1, K2, K3, K4, K7, K9a, K9b, K10 and K13 launched (counted in
+   ``launches`` only); (c) ``check_eval_memory`` at ``--images 200 --raw``
+   and ``--images 50``, RSS bounded; (d) ``check_dtype_parity`` at its tiny
+   settings on the card.
 
 Prints the card's name and power limit, each path's times, one JSON line
 of kernel results (``launches`` over every main-path run above,
@@ -218,24 +230,28 @@ def device_ms(torch, fn, iters=10):
     return device_profile(torch, fn, iters)[0]
 
 
-# The least time the card could take: bytes at
-# the H100's 3.35 TB/s, operations at the published peak for their type
+# The least time the card could take (``bound``), and the work formulas
+# behind it, come from the port's one home of them, ``ops/costs.py``: bytes
+# at the H100's 3.35 TB/s, operations at the published peak for their type
 # (bf16 989 TFLOP/s on the tensor cores, float32 67 TFLOP/s on the CUDA
-# cores), whichever is larger.
-HBM_BYTES_PER_S = 3.35e12
-PEAK_FLOPS = {"bf16": 989e12, "f32": 67e12}
+# cores), whichever is larger. Imported inside the functions: an A/B
+# worker imports its own checkout's package.
 
 
 def nbytes(*tensors):
     """Bytes of the tensors: each input read once, each output written
     once."""
-    return sum(t.numel() * t.element_size() for t in tensors)
+    from mask_rcnn_tpu_torch.ops import costs
+
+    return costs.nbytes(*tensors)
 
 
 def bound(n_bytes, flops, peak="f32"):
     """The kernel line's bound keys; no single torch call computes any of
     these functions (torchvision is not installed), so library_ms is
     null."""
+    from mask_rcnn_tpu_torch.ops.costs import HBM_BYTES_PER_S, PEAK_FLOPS
+
     t_bytes = n_bytes / HBM_BYTES_PER_S
     t_ops = flops / PEAK_FLOPS[peak]
     return {"bound_ms": max(t_bytes, t_ops) * 1e3,
@@ -244,15 +260,11 @@ def bound(n_bytes, flops, peak="f32"):
 
 
 def align_samples(rois, feat_hw, p=7, s=2, scale=1 / 16):
-    """RoIAlign's bilinear samples for these rois: sum over rois of
-    P*P*gy*gx with Detectron's adaptive grid (8 float ops per sample and
-    channel: four taps, each a multiply-add)."""
-    r = np.asarray(rois, np.float32).reshape(-1, 4) * np.float32(scale)
-    full = p * s
-    ext = np.maximum(r[:, 2:] - r[:, :2], 1.0)
-    gy = np.clip(np.ceil(ext[:, 0] / full), 1, -(-feat_hw[0] // full))
-    gx = np.clip(np.ceil(ext[:, 1] / full), 1, -(-feat_hw[1] // full))
-    return float((gy * gx).sum()) * p * p
+    """RoIAlign's bilinear samples for these rois (``ops/costs.py``; 8
+    float ops per sample and channel: four taps, each a multiply-add)."""
+    from mask_rcnn_tpu_torch.ops import costs
+
+    return costs.align_samples(rois, feat_hw, p, s, scale)
 
 
 def align_bwd_atomics(rois, feat_hw, p=7, s=2, scale=1 / 16):
@@ -300,26 +312,19 @@ def align_bwd_atomics(rois, feat_hw, p=7, s=2, scale=1 / 16):
 
 
 def nms_stops(idx, mask, n, max_out):
-    """Per problem, the candidates that a greedy scan reads: up to the last
-    kept box once ``max_out`` survive, else all ``n``."""
-    stops = []
-    for row_idx, row_mask in zip(idx.cpu().numpy(), mask.cpu().numpy()):
-        kept = row_idx[row_mask]
-        full = max_out and len(kept) >= max_out
-        stops.append(int(kept.max()) + 1 if full else n)
-    return stops
+    """Per problem, the candidates that a greedy scan reads
+    (``ops/costs.py``)."""
+    from mask_rcnn_tpu_torch.ops import costs
+
+    return costs.nms_stops(idx, mask, n, max_out)
 
 
 def nms_pairs(idx, mask, n, max_out):
-    """IoU pairs a greedy NMS needs on this data: each kept box against the
-    candidates after it, up to the row where the scan stopped (12 float ops
-    a pair)."""
-    pairs = 0
-    for row_idx, row_mask, stop in zip(idx.cpu().numpy(), mask.cpu().numpy(),
-                                       nms_stops(idx, mask, n, max_out)):
-        kept = row_idx[row_mask]
-        pairs += int((stop - kept - 1).clip(min=0).sum())
-    return pairs
+    """IoU pairs a greedy NMS needs on this data (``ops/costs.py``; 12
+    float ops a pair)."""
+    from mask_rcnn_tpu_torch.ops import costs
+
+    return costs.nms_pairs(idx, mask, n, max_out)
 
 
 def scan_note(idx, mask, n, max_out):
@@ -467,27 +472,12 @@ def decode_work(torch, cls_bbox, prob, valid, thresh, k, nms_thresh, d):
     and d outputs an image) and IoU pairs (each kept box against the
     selected candidates after it, up to where the class's scan stops; 12
     float operations a pair), from the plain selection's own steps."""
-    from mask_rcnn_tpu_torch.ops import nms
-    from mask_rcnn_tpu_torch.ops.tensors import gather_rows, top_k_stable
+    from mask_rcnn_tpu_torch.ops import costs
 
     n, rp, c = prob.shape
-    fg_p = prob[:, :, 1:].transpose(1, 2).reshape(-1, rp)
-    fg_b = cls_bbox[:, :, 1:].transpose(1, 2).reshape(-1, rp, 4)
-    ok = valid[:, None, :].expand(n, c - 1, rp).reshape(-1, rp) & (
-        fg_p > thresh)
-    top_p, top_i = top_k_stable(torch.where(ok, fg_p, -torch.inf),
-                                k if 0 < k < rp else rp)
-    sel = torch.isfinite(top_p)
-    plain = (nms.nms_small_plain if sel.shape[1] <= nms.SMALL_MAX_N
-             else nms.nms_blocked_plain)
-    idx, mask = plain(gather_rows(fg_b, top_i), sel, nms_thresh, d)
-    pairs = 0
-    for row_idx, row_mask, cnt in zip(idx.cpu().numpy(), mask.cpu().numpy(),
-                                      sel.sum(1).tolist()):
-        kept = row_idx[row_mask]
-        stop = kept.max() + 1 if len(kept) >= d else cnt
-        pairs += int((stop - kept - 1).clip(min=0).sum())
-    n_bytes = (fg_p.numel() * 4 + valid.numel() + int(sel.sum()) * 16
+    pairs, selected = costs.decode_pairs(cls_bbox, prob, valid, thresh, k,
+                                         nms_thresh, d)
+    n_bytes = (n * rp * (c - 1) * 4 + valid.numel() + selected * 16
                + n * d * (16 + 4 + 4 + 1))
     return n_bytes, pairs
 
@@ -1096,14 +1086,11 @@ def pool_row_reads(rois, p, scale=1 / 16, hw=(52, 84)):
 
 
 def pool_reads(rois, p, scale=1 / 16, hw=(52, 84)):
-    """Feature positions that max RoI pooling reads for these flat rois:
-    the sum of its bins' areas (chainer's quantized bins)."""
-    from mask_rcnn_tpu_torch.ops import roi_align as ra
+    """Feature positions that max RoI pooling reads for these flat rois
+    (``ops/costs.py``)."""
+    from mask_rcnn_tpu_torch.ops import costs
 
-    r = rois.float()
-    ys, ye = ra._pool_bounds(r[:, 0], r[:, 2], hw[0], p, scale)
-    xs, xe = ra._pool_bounds(r[:, 1], r[:, 3], hw[1], p, scale)
-    return float(((ye - ys)[:, :, None] * (xe - xs)[:, None, :]).sum())
+    return costs.pool_reads(rois, p, scale, hw)
 def crop_bwd_atomics(rois, idx, p, n, c, stride2=False, scale=1 / 16,
                      hw=(52, 84)):
     """Float4 atomics that K11 issues for these flat rois: per (roi, py) row
@@ -1571,7 +1558,7 @@ def drive_train_path(torch, kernels, pooling="align", reps=10):
     if pooling == "align":
         extra["stem_ab"] = time_stem_ab(torch, step, state, batch, reps)
         extra["k2_on_step"] = time_k2_on_step(torch, step, state, batch)
-    profile_train(torch, step, state, batch)
+    extra["device_ms_per_step"] = profile_train(torch, step, state, batch)
     return counts, ms, host_ms, peak_gb, extra
 
 
@@ -2407,7 +2394,8 @@ def kernel_group(name):
 
 
 def profile_train(torch, step, state, batch):
-    """Device time of two train steps by kernel family (profiler)."""
+    """Device time of two train steps by kernel family (profiler); returns
+    the device ms a step."""
     box = [state]
 
     def run():
@@ -2418,6 +2406,7 @@ def profile_train(torch, step, state, batch):
     print("top kernels (ms per step, launches, name):")
     for name, cnt, ms in sorted(events, key=lambda e: -e[2])[:12]:
         print(f"  {ms:8.3f} {cnt:5g}  {name[:110]}")
+    return sum(ev[2] for ev in events)
 
 
 def check_outputs(imgs, bboxes, masks, labels, scores):
@@ -2769,6 +2758,206 @@ def run_against(torch, other) -> int:
     print(json.dumps({"card": card, "identical": identical,
                       "differ": differ, "runs": runs}))
     return 0
+
+
+# ---- Phase 11: the profiling layer and the last two checks ---------------
+
+# The profiling tools' timing depth in the smoke (their shapes, dtypes and
+# configurations are their defaults; the full depth runs outside it).
+PROFILE_DEPTH = {"iters": 2, "reps": 3}
+# (b) must launch these: K10, K1, K2, K3, K4, K7, K9a, K9b, K13.
+PROFILED_KERNELS = ("stem_forward", "roi_align_grouped", "nms_blocked",
+                    "decode_select", "roi_align",
+                    "roi_align_grouped_backward", "anchor_targets",
+                    "proposal_targets", "roi_align_backward")
+
+
+def drive_profiling(torch, train_align, kernel_ms):
+    """Phase 11: (a) ``utils/profiling.py::time_fn_chained`` on K1 (1000
+    rois) and K2 (6000 -> 1000) against the profiler's device time of 10
+    plain calls of the same call and phase 2's CUDA-event time
+    ``kernel_ms`` (within 25% of each), and ``time_train_steps_chained`` on the align
+    b2 bf16 step beside phase 5's CUDA-event and profiled device ms; (b)
+    the four profiling tools at their default shapes (``mfu_report`` R-50,
+    ``train_profile`` bf16 and float32, ``head_profile``,
+    ``bench_align_variants``; timing depth :data:`PROFILE_DEPTH`): every
+    row finite with positive times, every kernel a row launched reported
+    work (``ops/costs.py``), and :data:`PROFILED_KERNELS` launched; (c)
+    ``check_eval_memory`` at ``--images 200 --raw`` and ``--images 50`` in
+    fresh processes, RSS bounded; (d) ``check_dtype_parity`` at its tiny
+    settings on the card. Returns (b)'s launch counts and the numbers."""
+    import contextlib
+    import io
+    import tempfile
+
+    from mask_rcnn_tpu_torch import (
+        create_train_state,
+        make_optimizer,
+        make_train_step,
+    )
+    from mask_rcnn_tpu_torch.examples import (
+        _profile_common,
+        bench_align_variants,
+        check_dtype_parity,
+        head_profile,
+        mfu_report,
+        train_profile,
+    )
+    from mask_rcnn_tpu_torch.models.mask_rcnn import (
+        MaskRCNNConfig,
+        init_params,
+    )
+    from mask_rcnn_tpu_torch.ops import nms, roi_align
+    from mask_rcnn_tpu_torch.utils import profiling
+
+    dev = torch.device("cuda")
+    numbers, fails = {}, []
+    t_phase = time.perf_counter()
+
+    # (a) the timing helpers against the profiler
+    rng = np.random.RandomState(SEED)
+    feats = torch.from_numpy(
+        rng.randn(1, 52, 84, 1024).astype(np.float32)).to(dev).bfloat16()
+    boxes = proposal_like_boxes(rng, 1000, 832, 1344)
+    boxes[-50:] = 0.0
+    rois = torch.from_numpy(boxes[None]).to(dev)
+    nms_boxes = torch.from_numpy(
+        proposal_like_boxes(rng, 6000, 832, 1344)[None]).to(dev)
+    nms_valid = torch.from_numpy(
+        (rng.rand(1, 6000) > 0.02) & (np.arange(6000) < 5900)).to(dev)
+    for name, fn, feed, phase2 in (
+        ("K1 roi_align_grouped, 1000 rois",
+         lambda f: roi_align.roi_align_grouped(f, rois, 7, 1 / 16, 0, 2),
+         feats, kernel_ms["roi_align_grouped"]),
+        ("K2 nms_blocked, 6000 -> 1000",
+         lambda b: nms.nms_blocked(b, nms_valid, 0.7, 1000), nms_boxes,
+         kernel_ms["nms_blocked"]),
+    ):
+        chained = profiling.time_fn_chained(fn, feed, reps=20, iters=3)
+
+        def calls():
+            for _ in range(10):
+                fn(feed)
+
+        # two captures: one was seen to keep a tenth of its kernels
+        takes = [profiling.device_busy_ms(calls, 10) for _ in range(2)]
+        prof = max(takes)
+        numbers[name] = {"chained_device_ms": chained,
+                         "profiler_device_ms": takes, "phase2_ms": phase2}
+        rel = max(abs(chained - prof) / prof, abs(chained - phase2) / phase2)
+        print(f"phase 11 (a) {name}: time_fn_chained {chained:.4f} ms, "
+              f"profiler device time of 10 plain calls "
+              f"{takes[0]:.4f} / {takes[1]:.4f} ms, phase 2 {phase2:.4f} ms "
+              f"(CUDA events): {rel:.1%} apart at most, limit 25%")
+        if not rel <= 0.25:
+            fails.append(f"(a) {name}: {chained:.4f} vs {prof:.4f} and "
+                         f"{phase2:.4f} ms")
+
+    cfg = MaskRCNNConfig(n_fg_class=N_CLASS_FG, min_size=800, max_size=1333,
+                         anchor_scales=(2, 4, 8, 16, 32),
+                         compute_dtype="bfloat16")
+    params = init_params(cfg, torch.Generator().manual_seed(SEED), dev)
+    opt, _ = make_optimizer(params, 0.02, 1000)
+    state = create_train_state(params, opt)
+    batch = train_batch(torch, 2, *TRAIN_HW, dev)
+    step = make_train_step(cfg, opt)
+    start = state.step
+    chained = profiling.time_train_steps_chained(step, state, batch, SEED,
+                                                 reps=4, iters=2)
+    assert state.step == start + 12, (start, state.step)
+    numbers["align_step_b2"] = {
+        "chained_device_ms": chained,
+        "phase5_events_ms": train_align["train_ms_per_step_b2"],
+        "phase5_profiled_device_ms": train_align["device_ms_per_step"]}
+    print(f"phase 11 (a) align b2 bf16 step: time_train_steps_chained "
+          f"{chained:.3f} ms of device time a step; phase 5: "
+          f"{train_align['train_ms_per_step_b2']:.3f} ms (CUDA events), "
+          f"{train_align['device_ms_per_step']:.3f} ms of profiled device "
+          "work")
+    if not (np.isfinite(chained) and chained > 0):
+        fails.append(f"(a) align step: {chained}")
+    del params, opt, state, batch, step
+
+    # (b) the four profiling tools
+    wrappers = _profile_common.kernel_wrappers()
+    for w in wrappers.values():
+        w.launches = 0
+    t0 = time.perf_counter()
+    tools = {
+        "mfu_report": lambda: mfu_report.run(
+            iters=PROFILE_DEPTH["iters"], reps=PROFILE_DEPTH["reps"],
+            step_reps=PROFILE_DEPTH["reps"]),
+        "train_profile bf16": lambda: train_profile.run(**PROFILE_DEPTH),
+        "train_profile float32": lambda: train_profile.run(
+            dtype="float32", **PROFILE_DEPTH),
+        "head_profile": lambda: head_profile.run(**PROFILE_DEPTH),
+        "bench_align_variants": lambda: bench_align_variants.run(
+            **PROFILE_DEPTH),
+    }
+    for name, tool in tools.items():
+        t1 = time.perf_counter()
+        try:
+            rows = tool()
+            _profile_common.check_rows(rows)
+        except Exception as e:  # every tool runs; the phase fails after
+            fails.append(f"(b) {name}: {type(e).__name__}: {e}")
+            continue
+        numbers[name] = {
+            "seconds": time.perf_counter() - t1,
+            "rows": {r["name"]: {k: r[k] for k in (
+                "device_ms", "events_ms", "flops", "bytes")}
+                for r in rows}}
+        print(f"phase 11 (b) {name}: {len(rows)} rows, "
+              f"{numbers[name]['seconds']:.1f} s")
+    counts = {k: wrappers[k].launches for k in PROFILED_KERNELS}
+    print(f"phase 11 (b), the profiling tools: "
+          f"{time.perf_counter() - t0:.1f} s")
+    try:
+        require_launched(counts, "profiling tools (phase 11 (b))")
+    except AssertionError as e:
+        fails.append(f"(b) {e}")
+
+    # (c) check_eval_memory, each in a fresh process (its own peak RSS)
+    for argv in (["--images", "200", "--raw"], ["--images", "50"]):
+        t1 = time.perf_counter()
+        res = subprocess.run(
+            [sys.executable, "-m",
+             "mask_rcnn_tpu_torch.examples.check_eval_memory", *argv],
+            capture_output=True, text=True, timeout=600,
+            cwd=os.path.dirname(os.path.abspath(__file__)))
+        out = res.stdout.strip()
+        print(f"phase 11 (c) check_eval_memory {' '.join(argv)} (exit "
+              f"{res.returncode}, {time.perf_counter() - t1:.1f} s):\n"
+              f"{out}\n{res.stderr[-2000:]}")
+        numbers["check_eval_memory " + " ".join(argv)] = out.splitlines()
+        if res.returncode != 0 or "RSS BOUNDED: OK" not in out:
+            fails.append(f"(c) check_eval_memory {' '.join(argv)}")
+
+    # (d) check_dtype_parity's plumbing on the card
+    t1 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="dtype_parity_") as tmp:
+        buf = io.StringIO()
+        try:
+            with contextlib.redirect_stdout(buf):
+                result = check_dtype_parity.main([
+                    "--min-size", "64", "--max-size", "96", "--max-epoch",
+                    "2", "--n-val", "4", "--min-map", "-1", "--workdir",
+                    tmp, "--device", "cuda"])
+        except BaseException as e:  # SystemExit from a failed rehearsal
+            print(buf.getvalue()[-6000:])
+            fails.append(f"(d) check_dtype_parity: {type(e).__name__}: {e}")
+            result = None
+    if result is not None:
+        numbers["check_dtype_parity"] = result
+        print(f"phase 11 (d) check_dtype_parity (tiny, on the card, "
+              f"{time.perf_counter() - t1:.1f} s): {json.dumps(result)}")
+        if not all(np.isfinite(result[k][m]) for k in ("f32", "bf16")
+                   for m in ("map@0.5", "map")):
+            fails.append(f"(d) check_dtype_parity: {result}")
+    numbers["seconds"] = time.perf_counter() - t_phase
+    print(f"phase 11: {numbers['seconds']:.1f} s")
+    assert not fails, "phase 11 failed:\n" + "\n".join(fails)
+    return counts, numbers
 
 
 # ---- Phase 9: data parallelism on the card --------------------------------
@@ -3446,6 +3635,11 @@ def main(argv=None) -> int:
     count(serve_counts, True)
     count(train_counts, True)
     last_mile["launches"] = {"serve": serve_counts, "train": train_counts}
+    counts, profiled = drive_profiling(
+        torch, training["align"],
+        {k: results[k]["ms"] for k in ("roi_align_grouped", "nms_blocked")})
+    count(counts, False)
+    profiled["launches"] = counts
     for name, entry in results.items():
         # nms_small serves no main path since decode_select took the decode
         entry["launches"] = launches.get(name, 0)
@@ -3455,7 +3649,8 @@ def main(argv=None) -> int:
                       "flat_head_ms_fwd_bwd": flat_ms, "train_loop": loop,
                       "entry_points": entry_points,
                       "data_parallel": data_parallel,
-                      "last_mile": last_mile, "card": smi}))
+                      "last_mile": last_mile, "profiling": profiled,
+                      "card": smi}))
     order = ("roi_align_grouped", "nms_blocked", "nms_small",
              "decode_select", "roi_align_grouped_backward", "anchor_targets",
              "proposal_targets", "crop_and_resize",

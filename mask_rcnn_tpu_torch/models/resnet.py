@@ -32,7 +32,7 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
-from mask_rcnn_tpu_torch.ops import _kernels
+from mask_rcnn_tpu_torch.ops import _kernels, costs
 
 RESNET_N_BLOCKS = {50: (3, 4, 6, 3), 101: (3, 4, 23, 3)}
 
@@ -123,8 +123,17 @@ def stem_forward(params, x):
     cores), applies the affine and relu in float32 and rounds the pooled
     result once. K10 has no backward: with gradients wanted
     (:func:`stem_wants_grad`) the call raises."""
+    weights = (params["conv1"]["W"], params["bn1"]["scale"],
+               params["bn1"]["bias"])
     if x.device.type == "cpu":
-        return stem_forward_plain(params, x)
+        out = costs.uncounted(stem_forward_plain, params, x)
+    else:
+        out = _stem_kernel(params, x)
+    costs.report("stem_forward", costs.stem_cost, x, weights, out)
+    return out
+
+
+def _stem_kernel(params, x):
     if stem_wants_grad(params, x):
         raise RuntimeError(
             "stem_forward: kernel K10 has no backward; the stem is frozen "

@@ -97,3 +97,15 @@ def clip_boxes(bbox: torch.Tensor, size) -> torch.Tensor:
         ],
         dim=-1,
     )
+
+
+def flip_boxes_horizontal(bbox: torch.Tensor, width) -> torch.Tensor:
+    """Horizontally flip boxes within an image of the given pixel width."""
+    return torch.stack([bbox[..., 0], width - bbox[..., 3], bbox[..., 2],
+                        width - bbox[..., 1]], dim=-1)
+
+
+def resize_boxes(bbox: torch.Tensor, scale_y, scale_x) -> torch.Tensor:
+    """Rescale boxes by per-axis factors."""
+    return bbox * torch.tensor([scale_y, scale_x, scale_y, scale_x],
+                               dtype=bbox.dtype, device=bbox.device)

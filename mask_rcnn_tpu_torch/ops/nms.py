@@ -28,7 +28,7 @@ import functools
 
 import torch
 
-from mask_rcnn_tpu_torch.ops import _kernels
+from mask_rcnn_tpu_torch.ops import _kernels, costs
 from mask_rcnn_tpu_torch.ops.tensors import gather_rows, top_k_stable
 
 # The standalone K3 takes at most this many boxes a problem and keeps its
@@ -138,7 +138,15 @@ def nms_blocked(boxes, valid, thresh, max_out):
     :func:`nms_kept_cap` kept boxes in shared memory; past that the rest go
     to a (B, max_out - cap, 4) float32 scratch allocated here."""
     if boxes.device.type == "cpu":
-        return nms_blocked_plain(boxes, valid, thresh, max_out)
+        idx, mask = costs.uncounted(nms_blocked_plain, boxes, valid, thresh,
+                                    max_out)
+    else:
+        idx, mask = _nms_blocked_kernel(boxes, valid, thresh, max_out)
+    costs.report("nms_blocked", costs.nms_cost, boxes, valid, idx, mask)
+    return idx, mask
+
+
+def _nms_blocked_kernel(boxes, valid, thresh, max_out):
     idx, mask = _checked_outputs(boxes, valid, max_out)
     b, n = valid.shape
     spill, cap = None, nms_kept_cap()
@@ -167,7 +175,15 @@ def nms_kept_cap():
 def nms_small(boxes, valid, thresh, max_out):
     """K3 wrapper: as :func:`nms_blocked`, for N <= :data:`SMALL_MAX_N`."""
     if boxes.device.type == "cpu":
-        return nms_small_plain(boxes, valid, thresh, max_out)
+        idx, mask = costs.uncounted(nms_small_plain, boxes, valid, thresh,
+                                    max_out)
+    else:
+        idx, mask = _nms_small_kernel(boxes, valid, thresh, max_out)
+    costs.report("nms_small", costs.nms_cost, boxes, valid, idx, mask)
+    return idx, mask
+
+
+def _nms_small_kernel(boxes, valid, thresh, max_out):
     idx, mask = _checked_outputs(boxes, valid, max_out)
     b, n = valid.shape
     if n > SMALL_MAX_N:
@@ -321,8 +337,18 @@ def decode_select(cls_bbox, prob, roi_valid, score_thresh, topk_per_class,
     (N, Rp, C) and 16-byte aligned cls_bbox (N, Rp, C, 4), bool roi_valid
     (N, Rp), all on one device, within :func:`decode_limits`."""
     if prob.device.type == "cpu":
-        return decode_select_plain(cls_bbox, prob, roi_valid, score_thresh,
-                                   topk_per_class, nms_thresh, d)
+        out = costs.uncounted(decode_select_plain, cls_bbox, prob, roi_valid,
+                              score_thresh, topk_per_class, nms_thresh, d)
+    else:
+        out = _decode_select_kernel(cls_bbox, prob, roi_valid, score_thresh,
+                                    topk_per_class, nms_thresh, d)
+    costs.report("decode_select", costs.decode_select_cost, cls_bbox, prob,
+                 roi_valid, score_thresh, topk_per_class, nms_thresh, d, out)
+    return out
+
+
+def _decode_select_kernel(cls_bbox, prob, roi_valid, score_thresh,
+                          topk_per_class, nms_thresh, d):
     if prob.device.type != "cuda":
         raise ValueError(f"unsupported device {prob.device}")
     if (prob.dim() != 3 or prob.dtype != torch.float32

@@ -31,7 +31,7 @@ from __future__ import annotations
 
 import torch
 
-from mask_rcnn_tpu_torch.ops import _kernels
+from mask_rcnn_tpu_torch.ops import _kernels, costs
 
 
 def _interp_matrix(start, bin_size, grid, pooled, max_grid, axis_size,
@@ -191,9 +191,19 @@ def _roi_align_forward(features, rois, out_size, spatial_scale,
                        sampling_ratio, bin_stride):
     """K1 on CUDA tensors, the plain version on CPU tensors."""
     if features.device.type == "cpu":
-        return roi_align_grouped_plain(features, rois, out_size,
-                                       spatial_scale, sampling_ratio,
-                                       bin_stride)
+        out = costs.uncounted(roi_align_grouped_plain, features, rois,
+                              out_size, spatial_scale, sampling_ratio,
+                              bin_stride)
+    else:
+        out = _roi_align_kernel(features, rois, out_size, spatial_scale,
+                                sampling_ratio, bin_stride)
+    costs.report("roi_align_grouped", costs.roi_align_cost, features, rois,
+                 None, out, spatial_scale, sampling_ratio, bin_stride)
+    return out
+
+
+def _roi_align_kernel(features, rois, out_size, spatial_scale,
+                      sampling_ratio, bin_stride):
     _check_cuda(features, "features", "NHWC")
     _check_aligned(features)
     n, h, w, c = features.shape
@@ -223,9 +233,21 @@ def roi_align_grouped_backward(grad_out, rois, feat_hw, spatial_scale,
     sums' order, and their last bits, vary from run to run); it must start
     on a 16-byte boundary, as a fresh contiguous tensor does."""
     if grad_out.device.type == "cpu":
-        return roi_align_grouped_backward_plain(
-            grad_out, rois, feat_hw, spatial_scale, sampling_ratio,
-            bin_stride)
+        grad = costs.uncounted(roi_align_grouped_backward_plain, grad_out,
+                               rois, feat_hw, spatial_scale, sampling_ratio,
+                               bin_stride)
+    else:
+        grad = _roi_align_backward_kernel(grad_out, rois, feat_hw,
+                                          spatial_scale, sampling_ratio,
+                                          bin_stride)
+    costs.report("roi_align_grouped_backward", costs.roi_align_cost, grad,
+                 rois, None, grad_out, spatial_scale, sampling_ratio,
+                 bin_stride)
+    return grad
+
+
+def _roi_align_backward_kernel(grad_out, rois, feat_hw, spatial_scale,
+                               sampling_ratio, bin_stride):
     _check_cuda(grad_out, "grad_out", "NRPPC")
     _check_aligned(grad_out, "grad_out")
     n, r, p, p2, c = grad_out.shape
@@ -378,8 +400,20 @@ def _roi_align_flat_forward(features, rois, roi_indices, out_size,
                             spatial_scale, sampling_ratio, bin_stride):
     """K4 on CUDA tensors, the plain version on CPU tensors."""
     if features.device.type == "cpu":
-        return roi_align_plain(features, rois, roi_indices, out_size,
-                               spatial_scale, sampling_ratio, bin_stride)
+        out = costs.uncounted(roi_align_plain, features, rois, roi_indices,
+                              out_size, spatial_scale, sampling_ratio,
+                              bin_stride)
+    else:
+        out = _roi_align_flat_kernel(features, rois, roi_indices, out_size,
+                                     spatial_scale, sampling_ratio,
+                                     bin_stride)
+    costs.report("roi_align", costs.roi_align_cost, features, rois,
+                 roi_indices, out, spatial_scale, sampling_ratio, bin_stride)
+    return out
+
+
+def _roi_align_flat_kernel(features, rois, roi_indices, out_size,
+                           spatial_scale, sampling_ratio, bin_stride):
     _check_cuda(features, "features", "NHWC")
     _check_aligned(features)
     _check_cuda_flat(rois, roi_indices, features.device)
@@ -407,9 +441,22 @@ def roi_align_backward(grad_out, rois, roi_indices, feat_shape,
     (K7's kernel with the roi's image from its index; float32 atomics,
     cast at the end; grad_out on a 16-byte boundary)."""
     if grad_out.device.type == "cpu":
-        return roi_align_backward_plain(grad_out, rois, roi_indices,
-                                        feat_shape, spatial_scale,
-                                        sampling_ratio, bin_stride)
+        grad = costs.uncounted(roi_align_backward_plain, grad_out, rois,
+                               roi_indices, feat_shape, spatial_scale,
+                               sampling_ratio, bin_stride)
+    else:
+        grad = _roi_align_flat_backward_kernel(
+            grad_out, rois, roi_indices, feat_shape, spatial_scale,
+            sampling_ratio, bin_stride)
+    costs.report("roi_align_backward", costs.roi_align_cost, grad, rois,
+                 roi_indices, grad_out, spatial_scale, sampling_ratio,
+                 bin_stride)
+    return grad
+
+
+def _roi_align_flat_backward_kernel(grad_out, rois, roi_indices, feat_shape,
+                                    spatial_scale, sampling_ratio,
+                                    bin_stride):
     _check_cuda(grad_out, "grad_out", "RPPC")
     _check_aligned(grad_out, "grad_out")
     r, p, p2, c = grad_out.shape
@@ -608,8 +655,18 @@ def _crop_and_resize_forward(features, rois, roi_indices, out_size,
     boundaries, and one channel a thread otherwise: its entry point picks
     the form, so no alignment is checked here."""
     if features.device.type == "cpu":
-        return crop_and_resize_plain(features, rois, roi_indices, out_size,
-                                     spatial_scale)
+        out = costs.uncounted(crop_and_resize_plain, features, rois,
+                              roi_indices, out_size, spatial_scale)
+    else:
+        out = _crop_and_resize_kernel(features, rois, roi_indices, out_size,
+                                      spatial_scale)
+    costs.report("crop_and_resize", costs.crop_resize_cost, features, rois,
+                 roi_indices, out)
+    return out
+
+
+def _crop_and_resize_kernel(features, rois, roi_indices, out_size,
+                            spatial_scale):
     _check_cuda(features, "features", "NHWC")
     _check_cuda_flat(rois, roi_indices, features.device)
     _check_args(out_size, 0, 1)
@@ -637,8 +694,18 @@ def crop_and_resize_backward(grad_out, rois, roi_indices, feat_shape,
     vectors when C is a multiple of 8 (bf16) or 4 (float32) and grad_out
     starts on a 16-byte boundary, and one channel a thread otherwise."""
     if grad_out.device.type == "cpu":
-        return crop_and_resize_backward_plain(grad_out, rois, roi_indices,
-                                              feat_shape, spatial_scale)
+        grad = costs.uncounted(crop_and_resize_backward_plain, grad_out,
+                               rois, roi_indices, feat_shape, spatial_scale)
+    else:
+        grad = _crop_and_resize_backward_kernel(grad_out, rois, roi_indices,
+                                                feat_shape, spatial_scale)
+    costs.report("crop_and_resize_backward", costs.crop_resize_cost, grad,
+                 rois, roi_indices, grad_out)
+    return grad
+
+
+def _crop_and_resize_backward_kernel(grad_out, rois, roi_indices, feat_shape,
+                                     spatial_scale):
     _check_cuda(grad_out, "grad_out", "RPPC")
     r, p, p2, c = grad_out.shape
     if p != p2:
@@ -809,8 +876,17 @@ def roi_pool_backward_plain(grad_out, features, rois, roi_indices,
 def _roi_pool_forward(features, rois, roi_indices, out_size, spatial_scale):
     """K6 on CUDA tensors, the plain version on CPU tensors."""
     if features.device.type == "cpu":
-        return roi_pool_plain(features, rois, roi_indices, out_size,
-                              spatial_scale)
+        out = costs.uncounted(roi_pool_plain, features, rois, roi_indices,
+                              out_size, spatial_scale)
+    else:
+        out = _roi_pool_kernel(features, rois, roi_indices, out_size,
+                               spatial_scale)
+    costs.report("roi_pool", costs.roi_pool_cost, features, rois,
+                 roi_indices, out, spatial_scale)
+    return out
+
+
+def _roi_pool_kernel(features, rois, roi_indices, out_size, spatial_scale):
     _check_cuda(features, "features", "NHWC")
     _check_cuda_flat(rois, roi_indices, features.device)
     _check_args(out_size, 0, 1)
@@ -840,8 +916,18 @@ def roi_pool_backward(grad_out, features, rois, roi_indices, spatial_scale):
     is a multiple of 8 (bf16) or 4 (float32) and one channel a thread
     otherwise, and takes bins of at most 32 rows."""
     if grad_out.device.type == "cpu":
-        return roi_pool_backward_plain(grad_out, features, rois, roi_indices,
-                                       spatial_scale)
+        grad = costs.uncounted(roi_pool_backward_plain, grad_out, features,
+                               rois, roi_indices, spatial_scale)
+    else:
+        grad = _roi_pool_backward_kernel(grad_out, features, rois,
+                                         roi_indices, spatial_scale)
+    costs.report("roi_pool_backward", costs.roi_pool_cost, features, rois,
+                 roi_indices, grad, spatial_scale, grad_out)
+    return grad
+
+
+def _roi_pool_backward_kernel(grad_out, features, rois, roi_indices,
+                              spatial_scale):
     _check_cuda(grad_out, "grad_out", "RPPC")
     _check_cuda(features, "features", "NHWC")
     r, p, p2, c = grad_out.shape
