@@ -113,15 +113,18 @@ GPU.
 11. the profiling layer and the last two checks, in this process: (a)
    ``utils/profiling.py::time_fn_chained`` on K1 (1000 rois) and K2 (6000
    -> 1000) within 25% of the profiler's device time of the same call and
-   of phase 2's CUDA-event time, and
-   ``time_train_steps_chained`` on the align b2 bf16 step beside phase 5's
-   times; (b) ``mfu_report`` (R-50), ``train_profile`` (bf16 and float32),
-   ``head_profile`` and ``bench_align_variants`` at their default shapes
+   of phase 2's CUDA-event time, each from one profiler capture that
+   must hold every launch's device activity (a short capture fails the
+   phase), and ``time_train_steps_chained`` on the align b2 bf16 step
+   beside phase 5's times; (b) ``mfu_report`` (R-50), ``train_profile``
+   (bf16 and float32), ``head_profile`` and ``bench_align_variants`` at
+   their default shapes
    (timing depth cut): finite rows, every launched kernel's cost reported,
    K1, K2, K3, K4, K7, K9a, K9b, K10 and K13 launched (counted in
    ``launches`` only); (c) ``check_eval_memory`` at ``--images 200 --raw``
    and ``--images 50``, RSS bounded; (d) ``check_dtype_parity`` at its tiny
-   settings on the card.
+   settings on the card, its rehearsals and their drivers run in this
+   process.
 
 Prints the card's name and power limit, each path's times, one JSON line
 of kernel results (``launches`` over every main-path run above,
@@ -238,14 +241,6 @@ def device_ms(torch, fn, iters=10):
 # worker imports its own checkout's package.
 
 
-def nbytes(*tensors):
-    """Bytes of the tensors: each input read once, each output written
-    once."""
-    from mask_rcnn_tpu_torch.ops import costs
-
-    return costs.nbytes(*tensors)
-
-
 def bound(n_bytes, flops, peak="f32"):
     """The kernel line's bound keys; no single torch call computes any of
     these functions (torchvision is not installed), so library_ms is
@@ -257,14 +252,6 @@ def bound(n_bytes, flops, peak="f32"):
     return {"bound_ms": max(t_bytes, t_ops) * 1e3,
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
             "library_ms": None}
-
-
-def align_samples(rois, feat_hw, p=7, s=2, scale=1 / 16):
-    """RoIAlign's bilinear samples for these rois (``ops/costs.py``; 8
-    float ops per sample and channel: four taps, each a multiply-add)."""
-    from mask_rcnn_tpu_torch.ops import costs
-
-    return costs.align_samples(rois, feat_hw, p, s, scale)
 
 
 def align_bwd_atomics(rois, feat_hw, p=7, s=2, scale=1 / 16):
@@ -311,25 +298,11 @@ def align_bwd_atomics(rois, feat_hw, p=7, s=2, scale=1 / 16):
             int((all_rows * cols).sum()))
 
 
-def nms_stops(idx, mask, n, max_out):
-    """Per problem, the candidates that a greedy scan reads
-    (``ops/costs.py``)."""
-    from mask_rcnn_tpu_torch.ops import costs
-
-    return costs.nms_stops(idx, mask, n, max_out)
-
-
-def nms_pairs(idx, mask, n, max_out):
-    """IoU pairs a greedy NMS needs on this data (``ops/costs.py``; 12
-    float ops a pair)."""
-    from mask_rcnn_tpu_torch.ops import costs
-
-    return costs.nms_pairs(idx, mask, n, max_out)
-
-
 def scan_note(idx, mask, n, max_out):
     """Where K2's scan stopped, in candidates and tiles of 64."""
-    stops = nms_stops(idx, mask, n, max_out)
+    from mask_rcnn_tpu_torch.ops import costs
+
+    stops = costs.nms_stops(idx, mask, n, max_out)
     return (f"scan stopped after candidate {stops} "
             f"(tile {[-(-s // 64) for s in stops]} of {-(-n // 64)})")
 
@@ -355,7 +328,7 @@ def proposal_like_boxes(rng, n, h, w):
 
 def check_kernels(torch, results):
     """Phase 2: each kernel against its plain version at the path's shapes."""
-    from mask_rcnn_tpu_torch.ops import nms, roi_align
+    from mask_rcnn_tpu_torch.ops import costs, nms, roi_align
 
     dev = torch.device("cuda")
     rng = np.random.RandomState(SEED)
@@ -384,7 +357,7 @@ def check_kernels(torch, results):
             feats, rois, *args))
         plain_ms = cuda_ms(torch, lambda: roi_align.roi_align_grouped_plain(
             feats.float(), rois, *args), warmup=1, iters=3)
-        samples = align_samples(boxes, (52, 84))
+        samples = costs.align_samples(boxes, (52, 84))
         # logical tap bytes: four taps of every channel a sample, whether
         # they come from L1, L2 or memory
         taps = samples * 4 * 1024 * feats.element_size()
@@ -397,7 +370,8 @@ def check_kernels(torch, results):
                                  f"{bad} values ({r} rois)")
         if r == 1000:  # the box pass's shape; the mask pass's is printed
             k1["ms"], k1["plain_ms"] = ms, plain_ms
-            k1.update(bound(nbytes(feats, rois, got), 8 * 1024 * samples))
+            k1.update(bound(costs.nbytes(feats, rois, got),
+                            8 * 1024 * samples))
     results["roi_align_grouped"] = k1
 
     # K2: 6000 score-sorted proposals -> 1000 at 0.7; a tail of invalid
@@ -439,8 +413,8 @@ def check_kernels(torch, results):
             "source": "mask_rcnn_tpu_torch/csrc/nms.cu",
             "replaces": f"mask_rcnn_tpu/ops/nms.py:{line}",
             "max_abs_err": float(n_diff), "ms": ms, "plain_ms": plain_ms,
-            **bound(nbytes(b, v, idx, mask),
-                    12 * nms_pairs(idx, mask, b.shape[1], k)),
+            **bound(costs.nbytes(b, v, idx, mask),
+                    12 * costs.nms_pairs(idx, mask, b.shape[1], k)),
         }
 
 
@@ -670,14 +644,14 @@ def anchor_target_bytes(a_in, got, cfg):
     gt boxes and validity, one priority per sampling candidate (``pri_pos``
     of a pre-sampling positive, ``pri_neg`` of a negative), then loc and
     label. Returns (bytes, what was counted)."""
-    from mask_rcnn_tpu_torch.ops import targets
+    from mask_rcnn_tpu_torch.ops import costs, targets
 
     bbox, valid, anchors, img_size = a_in
     _, label = targets.anchor_match_plain(
         anchors, bbox, valid, img_size, cfg.pos_iou_thresh,
         cfg.neg_iou_thresh)
     cand = (label >= 0).sum().item()
-    return nbytes(bbox, valid, anchors, *got) + 4 * cand, {
+    return costs.nbytes(bbox, valid, anchors, *got) + 4 * cand, {
         "candidate priorities": cand}
 
 
@@ -687,7 +661,7 @@ def proposal_target_bytes(torch, p_in, got, cfg):
     outputs, and of the packed (N, G, H, W/8) masks only the distinct bytes
     that the positive crops' bilinear taps read. Returns (bytes, what was
     counted)."""
-    from mask_rcnn_tpu_torch.ops import targets
+    from mask_rcnn_tpu_torch.ops import costs, targets
 
     roi, roi_valid, bbox, _, valid, masks = p_in
     thresh = (cfg.pos_iou_thresh, cfg.neg_iou_thresh_hi,
@@ -711,7 +685,7 @@ def proposal_target_bytes(torch, p_in, got, cfg):
     taps = [((row + y)[..., :, None] * wm + (x // 8)[..., None, :])[positive]
             for y in (y0, y1) for x in (x0, x1)]
     mask_bytes = torch.unique(torch.cat(taps)).numel()
-    n_bytes = (nbytes(roi, roi_valid, *p_in[2:5], *got) + 4 * cand
+    n_bytes = (costs.nbytes(roi, roi_valid, *p_in[2:5], *got) + 4 * cand
                + mask_bytes)
     return n_bytes, {"candidate priorities": cand,
                      "crops": positive.sum().item(),
@@ -721,6 +695,8 @@ def proposal_target_bytes(torch, p_in, got, cfg):
 def check_train_kernels(torch, results):
     """Phase 2, training side: K7, K2 at the train counts, K9a and K9b + K8
     against their plain versions at the train step's shapes."""
+    from mask_rcnn_tpu_torch.ops import costs
+
     from mask_rcnn_tpu_torch.models.mask_rcnn import (
         MaskRCNNConfig,
         make_anchors,
@@ -769,8 +745,8 @@ def check_train_kernels(torch, results):
         "source": "mask_rcnn_tpu_torch/csrc/roi_align.cu",
         "replaces": "mask_rcnn_tpu/ops/roi_align.py:282",
         "max_abs_err": err.max().item(), "ms": ms, "plain_ms": plain_ms,
-        **bound(nbytes(g, rois, got),
-                8 * 1024 * align_samples(rois.cpu().numpy(), (h // 16,
+        **bound(costs.nbytes(g, rois, got),
+                8 * 1024 * costs.align_samples(rois.cpu().numpy(), (h // 16,
                                                               w // 16)))}
 
     # K2 at the train counts: (2, 12000) score-sorted proposals -> 2000 at
@@ -922,6 +898,7 @@ def check_stem_kernel(torch, results):
     cuDNN stem it replaces) at (1, 832, 1344, 3) and (2, 832, 1344, 3),
     bf16 and float32 (the plain side with TF32 off)."""
     from mask_rcnn_tpu_torch.models import resnet
+    from mask_rcnn_tpu_torch.ops import costs
 
     k10 = {"name": "stem_forward", "route": "cuda",
            "source": "mask_rcnn_tpu_torch/csrc/stem.cu",
@@ -968,7 +945,7 @@ def check_stem_kernel(torch, results):
             if dtype == torch.bfloat16 and n == 1:  # the serving shape
                 ch, cw = -(-TRAIN_HW[0] // 2), -(-TRAIN_HW[1] // 2)
                 k10.update(ms=ms, wrapper_ms=wrapper_ms, plain_ms=plain_ms,
-                           **bound(nbytes(x, params["conv1"]["W"], got),
+                           **bound(costs.nbytes(x, params["conv1"]["W"], got),
                                    2 * n * ch * cw * 64 * 147, "bf16"))
             elif dtype == torch.bfloat16:
                 k10["b2_ms"], k10["b2_plain_ms"] = ms, plain_ms
@@ -997,6 +974,7 @@ def check_flat_kernels(torch, results):
     (1, 52, 84, 1024) bf16 with 1000 rois and on (2, 52, 84, 1024) with a
     ragged 1300/700 split, 7x7 bins at bin_stride 2; K13 against the plain
     backward from (1024, 7, 7, 1024) to (2, 52, 84, 1024)."""
+    from mask_rcnn_tpu_torch.ops import costs
     from mask_rcnn_tpu_torch.ops import roi_align as ra
 
     dev = torch.device("cuda")
@@ -1031,8 +1009,8 @@ def check_flat_kernels(torch, results):
         k4["max_abs_err"] = max(k4["max_abs_err"], err.max().item())
         if counts == FLAT_SPLIT:  # the flat head path's shape
             k4.update(ms=ms, plain_ms=plain_ms, **bound(
-                nbytes(feats, rois, idx, got),
-                8 * 1024 * align_samples(rois.cpu().numpy(), (fh, fw))))
+                costs.nbytes(feats, rois, idx, got),
+                8 * 1024 * costs.align_samples(rois.cpu().numpy(), (fh, fw))))
     results["roi_align"] = k4
 
     rois, idx = ragged_rois(torch, rng, (512, 512))
@@ -1065,8 +1043,8 @@ def check_flat_kernels(torch, results):
         "source": "mask_rcnn_tpu_torch/csrc/roi_align.cu",
         "replaces": "mask_rcnn_tpu/ops/roi_align.py:189",
         "max_abs_err": err.max().item(), "ms": ms, "plain_ms": plain_ms,
-        **bound(nbytes(g, rois, idx, got),
-                8 * 1024 * align_samples(rois.cpu().numpy(), (fh, fw)))}
+        **bound(costs.nbytes(g, rois, idx, got),
+                8 * 1024 * costs.align_samples(rois.cpu().numpy(), (fh, fw)))}
 
 
 SERVE_ROIS = (1000, 100)  # the serving head passes' rois at batch 1
@@ -1085,12 +1063,6 @@ def pool_row_reads(rois, p, scale=1 / 16, hw=(52, 84)):
     return float(((ye - ys).clamp(min=0) * cols[:, None]).sum())
 
 
-def pool_reads(rois, p, scale=1 / 16, hw=(52, 84)):
-    """Feature positions that max RoI pooling reads for these flat rois
-    (``ops/costs.py``)."""
-    from mask_rcnn_tpu_torch.ops import costs
-
-    return costs.pool_reads(rois, p, scale, hw)
 def crop_bwd_atomics(rois, idx, p, n, c, stride2=False, scale=1 / 16,
                      hw=(52, 84)):
     """Float4 atomics that K11 issues for these flat rois: per (roi, py) row
@@ -1171,7 +1143,11 @@ def check_pool_kernels(torch, results):
     send, zero on every odd py or odd px), each against its plain version;
     then K12 on rois inside a block of exact zeros, where every position of
     a bin ties."""
+    from mask_rcnn_tpu_torch.ops import costs
     from mask_rcnn_tpu_torch.ops import roi_align as ra
+
+    def pool_reads(rois):  # on the (52, 84) features, 14x14 bins
+        return costs.pool_reads(rois, 14, 1 / 16, (52, 84))
 
     dev = torch.device("cuda")
     rng = np.random.RandomState(SEED + 2)
@@ -1229,7 +1205,7 @@ def check_pool_kernels(torch, results):
         if zeros.any():
             raise AssertionError("K5 wrote a nonzero value for a roi of an "
                                  "out-of-range index")
-        wrote = nbytes(got)
+        wrote = costs.nbytes(got)
 
         def one_launch_ms(fn):
             """Device ms a call of ``fn``, which runs one kernel, from the
@@ -1284,15 +1260,15 @@ def check_pool_kernels(torch, results):
         print(f"K6 logical bytes, {r} rois: "
               f"{pool_row_reads(args[0], 14) * 2048 / 1e6:.1f} MB of feature "
               f"reads (the earlier form read every bin whole: "
-              f"{pool_reads(args[0], 14) * 2048 / 1e6:.1f} MB), "
-              f"{nbytes(got) / 1e6:.1f} MB written")
+              f"{pool_reads(args[0]) * 2048 / 1e6:.1f} MB), "
+              f"{costs.nbytes(got) / 1e6:.1f} MB written")
         if r == SERVE_ROIS[0]:  # the box pass's; the mask pass's is printed
             k5["ms"], k5["plain_ms"] = ms, plain_ms
             k6["ms"], k6["plain_ms"] = k6_ms, k6_plain_ms
-            io = nbytes(feats, args[0], args[1], got)
+            io = costs.nbytes(feats, args[0], args[1], got)
             # four bilinear taps per output value; a compare per value read
             k5.update(bound(io, 8 * got.numel()))
-            k6.update(bound(io, 1024 * pool_reads(args[0], 14)))
+            k6.update(bound(io, 1024 * pool_reads(args[0])))
             k6_args = args
 
     # NaN, +inf and -inf among the features. A bin that holds a NaN or
@@ -1342,7 +1318,7 @@ def check_pool_kernels(torch, results):
          lambda: ra.roi_pool_backward(g, feats, rois, idx, 1 / 16),
          lambda: ra.roi_pool_backward_plain(g.float(), feats.float(), rois,
                                             idx, 1 / 16),
-         (g, feats, rois, idx), 2 * 1024 * pool_reads(rois, 14)),
+         (g, feats, rois, idx), 2 * 1024 * pool_reads(rois)),
     ):
         got, want = fn(), plain()
         s2 = grad is g_s2
@@ -1364,12 +1340,12 @@ def check_pool_kernels(torch, results):
             print(f"K12 logical bytes: {reads * 2 / 1e6:.1f} MB of feature "
                   f"reads (the earlier form read each bin twice and its "
                   f"tied columns once more: over "
-                  f"{2 * 2 * 1024 * pool_reads(rois, 14) / 1e6:.1f} MB), "
+                  f"{2 * 2 * 1024 * pool_reads(rois) / 1e6:.1f} MB), "
                   f"at most {reads * 4 / 1e6:.1f} MB of atomics")
         else:
             atomics = crop_bwd_atomics(rois, idx, 14, n, 1024, s2)
             print(f"K11 logical bytes{' (stride 2)' if s2 else ''}: "
-                  f"{nbytes(grad) / 1e6:.1f} MB of gradient reads, "
+                  f"{costs.nbytes(grad) / 1e6:.1f} MB of gradient reads, "
                   f"{atomics / 1e6:.2f} M float4 atomics "
                   f"({atomics * 16 / 1e6:.1f} MB; the earlier form issued "
                   f"one scalar atomic per nonzero (cell, tap, row, channel):"
@@ -1388,7 +1364,7 @@ def check_pool_kernels(torch, results):
             continue
         results[name] = entry(name, line)
         results[name].update(max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                             **bound(nbytes(*io, got), flops))
+                             **bound(costs.nbytes(*io, got), flops))
 
     # K12's tie rule: rois inside the zero block, where every position of a
     # bin ties; an integer gradient makes every weighted sum exact.
@@ -1569,7 +1545,7 @@ def time_k2_on_step(torch, step, state, batch):
     them (identical positions and masks), both timed, and where the scan
     stopped. The counts of the step's run were read before this."""
     from mask_rcnn_tpu_torch.models import rpn
-    from mask_rcnn_tpu_torch.ops import nms
+    from mask_rcnn_tpu_torch.ops import costs, nms
 
     padded, seen = rpn.nms_padded, []
 
@@ -1596,7 +1572,7 @@ def time_k2_on_step(torch, step, state, batch):
     n_diff = ((idx != want_idx).sum() + (mask != want_mask).sum()).item()
     ms = cuda_ms(torch, fn)
     plain_ms = cuda_ms(torch, plain, warmup=1, iters=3)
-    stops = nms_stops(want_idx, want_mask, n, max_out)
+    stops = costs.nms_stops(want_idx, want_mask, n, max_out)
     print(f"K2 nms_blocked on the align train step's proposals "
           f"{tuple(boxes.shape)} -> {max_out} at {thresh}: identical="
           f"{n_diff == 0} (valid {valid.sum(1).tolist()}, kept "
@@ -2772,6 +2748,43 @@ PROFILED_KERNELS = ("stem_forward", "roi_align_grouped", "nms_blocked",
                     "proposal_targets", "roi_align_backward")
 
 
+def run_module_in_process(run):
+    """A stand-in for ``subprocess.run`` that runs ``python -m <module>
+    <args>`` in this process (``runpy``, as ``-m`` does, with ``env``'s
+    variables set and ``sys.argv`` the command's) and returns its exit code
+    and its output; any other command goes to ``run``. Phase 11 (d) runs
+    ``check_dtype_parity``'s rehearsals and their drivers so: each process
+    would take ~15 s to start and reach the card."""
+    import contextlib
+    import io
+    import runpy
+
+    def in_process(cmd, *args, env=None, **kwargs):
+        if list(cmd[:2]) != [sys.executable, "-m"]:
+            return run(cmd, *args, env=env, **kwargs)
+        saved_env, saved_argv = dict(os.environ), sys.argv
+        if env is not None:
+            os.environ.update(env)
+        sys.argv = [cmd[2], *cmd[3:]]
+        out, code = io.StringIO(), 0
+        try:
+            with contextlib.redirect_stdout(out), \
+                    contextlib.redirect_stderr(out):
+                runpy.run_module(cmd[2], run_name="__main__", alter_sys=True)
+        except SystemExit as e:
+            code = (e.code if isinstance(e.code, int)
+                    else int(e.code is not None))
+            if not isinstance(e.code, (int, type(None))):
+                out.write(f"{e.code}\n")
+        finally:
+            sys.argv = saved_argv
+            os.environ.clear()
+            os.environ.update(saved_env)
+        return subprocess.CompletedProcess(cmd, code, out.getvalue(), None)
+
+    return in_process
+
+
 def drive_profiling(torch, train_align, kernel_ms):
     """Phase 11: (a) ``utils/profiling.py::time_fn_chained`` on K1 (1000
     rois) and K2 (6000 -> 1000) against the profiler's device time of 10
@@ -2785,10 +2798,13 @@ def drive_profiling(torch, train_align, kernel_ms):
     work (``ops/costs.py``), and :data:`PROFILED_KERNELS` launched; (c)
     ``check_eval_memory`` at ``--images 200 --raw`` and ``--images 50`` in
     fresh processes, RSS bounded; (d) ``check_dtype_parity`` at its tiny
-    settings on the card. Returns (b)'s launch counts and the numbers."""
+    settings on the card, its rehearsals and their drivers in this process
+    (:func:`run_module_in_process`). Returns (b)'s launch counts and the
+    numbers."""
     import contextlib
     import io
     import tempfile
+    import unittest.mock
 
     from mask_rcnn_tpu_torch import (
         create_train_state,
@@ -2833,22 +2849,26 @@ def drive_profiling(torch, train_align, kernel_ms):
          lambda b: nms.nms_blocked(b, nms_valid, 0.7, 1000), nms_boxes,
          kernel_ms["nms_blocked"]),
     ):
-        chained = profiling.time_fn_chained(fn, feed, reps=20, iters=3)
-
-        def calls():
-            for _ in range(10):
-                fn(feed)
-
-        # two captures: one was seen to keep a tenth of its kernels
-        takes = [profiling.device_busy_ms(calls, 10) for _ in range(2)]
-        prof = max(takes)
+        # one capture each, checked for lost activities: a short capture
+        # raises and fails the phase; what each lost outside its runs is
+        # printed
+        try:
+            chained = profiling.time_fn_chained(fn, feed, reps=20, iters=3)
+            captures = [dict(profiling.LAST_CAPTURE)]
+            prof = profiling.device_busy_ms(lambda: fn(feed), 1, 10)
+            captures.append(dict(profiling.LAST_CAPTURE))
+        except RuntimeError as e:
+            fails.append(f"(a) {name}: {e}")
+            print(f"phase 11 (a) {name}: {e}")
+            continue
         numbers[name] = {"chained_device_ms": chained,
-                         "profiler_device_ms": takes, "phase2_ms": phase2}
+                         "profiler_device_ms": prof, "phase2_ms": phase2,
+                         "captures": captures}
         rel = max(abs(chained - prof) / prof, abs(chained - phase2) / phase2)
         print(f"phase 11 (a) {name}: time_fn_chained {chained:.4f} ms, "
-              f"profiler device time of 10 plain calls "
-              f"{takes[0]:.4f} / {takes[1]:.4f} ms, phase 2 {phase2:.4f} ms "
-              f"(CUDA events): {rel:.1%} apart at most, limit 25%")
+              f"profiler device time of 10 plain calls {prof:.4f} ms, "
+              f"phase 2 {phase2:.4f} ms (CUDA events): {rel:.1%} apart at "
+              f"most, limit 25%; the two captures: {captures}")
         if not rel <= 0.25:
             fails.append(f"(a) {name}: {chained:.4f} vs {prof:.4f} and "
                          f"{phase2:.4f} ms")
@@ -2862,8 +2882,12 @@ def drive_profiling(torch, train_align, kernel_ms):
     batch = train_batch(torch, 2, *TRAIN_HW, dev)
     step = make_train_step(cfg, opt)
     start = state.step
-    chained = profiling.time_train_steps_chained(step, state, batch, SEED,
-                                                 reps=4, iters=2)
+    try:
+        chained = profiling.time_train_steps_chained(step, state, batch,
+                                                     SEED, reps=4, iters=2)
+    except RuntimeError as e:  # a short capture
+        fails.append(f"(a) align step: {e}")
+        chained = float("nan")
     assert state.step == start + 12, (start, state.step)
     numbers["align_step_b2"] = {
         "chained_device_ms": chained,
@@ -2873,7 +2897,7 @@ def drive_profiling(torch, train_align, kernel_ms):
           f"{chained:.3f} ms of device time a step; phase 5: "
           f"{train_align['train_ms_per_step_b2']:.3f} ms (CUDA events), "
           f"{train_align['device_ms_per_step']:.3f} ms of profiled device "
-          "work")
+          f"work; the capture: {profiling.LAST_CAPTURE}")
     if not (np.isfinite(chained) and chained > 0):
         fails.append(f"(a) align step: {chained}")
     del params, opt, state, batch, step
@@ -2933,12 +2957,15 @@ def drive_profiling(torch, train_align, kernel_ms):
         if res.returncode != 0 or "RSS BOUNDED: OK" not in out:
             fails.append(f"(c) check_eval_memory {' '.join(argv)}")
 
-    # (d) check_dtype_parity's plumbing on the card
+    # (d) check_dtype_parity's plumbing on the card, its rehearsals and
+    # their drivers in this process
     t1 = time.perf_counter()
     with tempfile.TemporaryDirectory(prefix="dtype_parity_") as tmp:
         buf = io.StringIO()
         try:
-            with contextlib.redirect_stdout(buf):
+            with contextlib.redirect_stdout(buf), unittest.mock.patch.object(
+                    subprocess, "run",
+                    run_module_in_process(subprocess.run)):
                 result = check_dtype_parity.main([
                     "--min-size", "64", "--max-size", "96", "--max-epoch",
                     "2", "--n-val", "4", "--min-map", "-1", "--workdir",

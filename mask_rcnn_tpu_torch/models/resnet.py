@@ -112,6 +112,7 @@ def stem_wants_grad(params, x) -> bool:
         params["bn1"]["bias"]))
 
 
+@costs.kernel("stem_forward", stem_forward_plain, device_arg=1)
 def stem_forward(params, x):
     """The stem, conv1 7x7/2 pad3 -> affine -> relu -> maxpool 3x3/2 pad1:
     x (N, H, W, 3) -> (N, ceil(H/4), ceil(W/4), 64) NHWC, any H and W.
@@ -123,17 +124,6 @@ def stem_forward(params, x):
     cores), applies the affine and relu in float32 and rounds the pooled
     result once. K10 has no backward: with gradients wanted
     (:func:`stem_wants_grad`) the call raises."""
-    weights = (params["conv1"]["W"], params["bn1"]["scale"],
-               params["bn1"]["bias"])
-    if x.device.type == "cpu":
-        out = costs.uncounted(stem_forward_plain, params, x)
-    else:
-        out = _stem_kernel(params, x)
-    costs.report("stem_forward", costs.stem_cost, x, weights, out)
-    return out
-
-
-def _stem_kernel(params, x):
     if stem_wants_grad(params, x):
         raise RuntimeError(
             "stem_forward: kernel K10 has no backward; the stem is frozen "

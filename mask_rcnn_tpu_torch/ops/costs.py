@@ -5,13 +5,13 @@ bench_align_variants}.py``) and ``chip_smoke.py`` read.
 
 The kernels are loaded through ``ctypes`` (``ops/_kernels.py``), not
 registered as torch ops, so no torch cost counter sees their work. Each
-kernel wrapper therefore reports it: :func:`report` hands the wrapper's
-tensors and a formula of this module to the counter that ``cost_of``
-installs in :data:`ACTIVE`. With no counter active the report is one
-``None`` check (no formula runs, no host synchronisation). On CPU tensors
-a wrapper runs its kernel's plain version through :func:`uncounted`, so a
-count on the CPU holds the kernel's work, not the plain version's einsums
-and sorts.
+kernel wrapper therefore reports it: the :func:`kernel` decorator hands the
+wrapper's tensors and the kernel's formula of this module
+(``<kernel>_cost``) to the counter that ``cost_of`` installs in
+:data:`ACTIVE`. With no counter active the report is one ``None`` check (no
+formula runs, no host synchronisation). On CPU tensors a wrapper runs its
+kernel's plain version through :func:`uncounted`, so a count on the CPU
+holds the kernel's work, not the plain version's einsums and sorts.
 
 Conventions (those of ``chip_smoke.py``'s kernel bounds): bytes are each
 input read once and each output written once; FLOPs are the arithmetic the
@@ -23,6 +23,8 @@ the four-op stem's conv.
 """
 
 from __future__ import annotations
+
+import functools
 
 import numpy as np
 
@@ -65,20 +67,37 @@ def nbytes(*tensors):
 ACTIVE = None
 
 
-def report(name, cost, *args):
-    """Add kernel ``name``'s work, ``cost(*args) -> (flops, bytes)``, to the
-    active counter; the formula runs with the counter paused."""
-    if ACTIVE is not None:
-        ACTIVE.add_kernel(name, cost, args)
-
-
 def uncounted(fn, *args):
     """``fn(*args)``, a plain version standing in for its kernel, kept out
-    of the active counter (the kernel's :func:`report` counts the work)."""
+    of the active counter (the kernel's report counts the work)."""
     if ACTIVE is None:
         return fn(*args)
     with ACTIVE.paused():
         return fn(*args)
+
+
+def kernel(name, plain, device_arg=0):
+    """Decorates the function that launches kernel ``name``: on CPU tensors
+    (argument ``device_arg`` on the CPU) the wrapper runs ``plain``
+    instead, kept out of the active counter, and either way it then reports
+    the launch's work, ``<name>_cost(out, *args)`` of this module, to the
+    active counter. Arguments are positional. With no counter active the
+    report is one ``None`` check."""
+
+    def wrap(launch):
+        @functools.wraps(launch)
+        def wrapper(*args):
+            if args[device_arg].device.type == "cpu":
+                out = uncounted(plain, *args)
+            else:
+                out = launch(*args)
+            if ACTIVE is not None:
+                ACTIVE.add_kernel(name, globals()[name + "_cost"],
+                                  (out, *args))
+            return out
+        return wrapper
+
+    return wrap
 
 
 # ---------------------------------------------------------------------------
@@ -99,11 +118,11 @@ def align_samples(rois, feat_hw, p=7, s=2, scale=1 / 16, sampling_ratio=0):
     return float((gy * gx).sum()) * p * p
 
 
-def roi_align_cost(features, rois, roi_indices, pooled, spatial_scale,
-                   sampling_ratio, bin_stride):
-    """K1/K4 (``features`` in, ``pooled`` out) and K7/K13 (the pooled
-    gradient in, the features' gradient out): the same taps either way.
-    ``roi_indices`` is None for grouped rois."""
+def _align_cost(features, rois, roi_indices, pooled, spatial_scale,
+                sampling_ratio, bin_stride):
+    """RoIAlign forward (``features`` in, ``pooled`` out) and backward (the
+    pooled gradient in, the features' gradient out): the same taps either
+    way. ``roi_indices`` is None for grouped rois."""
     c = features.shape[-1]
     samples = align_samples(rois.detach().cpu().numpy(),
                             tuple(features.shape[1:3]), pooled.shape[-2],
@@ -112,9 +131,46 @@ def roi_align_cost(features, rois, roi_indices, pooled, spatial_scale,
     return 8 * c * samples, nbytes(features, rois, *extra, pooled)
 
 
-def crop_resize_cost(features, rois, roi_indices, pooled):
-    """K5 (forward) and K11 (backward): four bilinear taps a pooled value."""
-    return 8 * pooled.numel(), nbytes(features, rois, roi_indices, pooled)
+def roi_align_grouped_cost(out, features, rois, out_size, spatial_scale,
+                           sampling_ratio, bin_stride):
+    """K1."""
+    return _align_cost(features, rois, None, out, spatial_scale,
+                       sampling_ratio, bin_stride)
+
+
+def roi_align_grouped_backward_cost(grad, grad_out, rois, feat_hw,
+                                    spatial_scale, sampling_ratio=0,
+                                    bin_stride=1):
+    """K7."""
+    return _align_cost(grad, rois, None, grad_out, spatial_scale,
+                       sampling_ratio, bin_stride)
+
+
+def roi_align_cost(out, features, rois, roi_indices, out_size,
+                   spatial_scale, sampling_ratio, bin_stride):
+    """K4."""
+    return _align_cost(features, rois, roi_indices, out, spatial_scale,
+                       sampling_ratio, bin_stride)
+
+
+def roi_align_backward_cost(grad, grad_out, rois, roi_indices, feat_shape,
+                            spatial_scale, sampling_ratio=0, bin_stride=1):
+    """K13."""
+    return _align_cost(grad, rois, roi_indices, grad_out, spatial_scale,
+                       sampling_ratio, bin_stride)
+
+
+def crop_and_resize_cost(out, features, rois, roi_indices, out_size,
+                         spatial_scale):
+    """K5: four bilinear taps a pooled value."""
+    return 8 * out.numel(), nbytes(features, rois, roi_indices, out)
+
+
+def crop_and_resize_backward_cost(grad, grad_out, rois, roi_indices,
+                                  feat_shape, spatial_scale):
+    """K11: the forward's taps, from the pooled gradient."""
+    return (8 * grad_out.numel(),
+            nbytes(grad_out, rois, roi_indices, grad))
 
 
 def pool_reads(rois, p, scale, hw):
@@ -128,16 +184,20 @@ def pool_reads(rois, p, scale, hw):
     return float(((ye - ys)[:, :, None] * (xe - xs)[:, None, :]).sum())
 
 
-def roi_pool_cost(features, rois, roi_indices, out_like, spatial_scale,
-                  grad_in=None):
-    """K6 (a compare a value read) and K12 (``grad_in`` given: the compares
-    again and an add a winning position)."""
+def roi_pool_cost(out, features, rois, roi_indices, out_size,
+                  spatial_scale):
+    """K6: a compare a value read."""
     n, h, w, c = features.shape
-    p = out_like.shape[1] if grad_in is None else grad_in.shape[1]
-    reads = c * pool_reads(rois, p, spatial_scale, (h, w))
-    if grad_in is None:
-        return reads, nbytes(features, rois, roi_indices, out_like)
-    return 2 * reads, nbytes(grad_in, features, rois, roi_indices, out_like)
+    reads = c * pool_reads(rois, out_size, spatial_scale, (h, w))
+    return reads, nbytes(features, rois, roi_indices, out)
+
+
+def roi_pool_backward_cost(grad, grad_out, features, rois, roi_indices,
+                           spatial_scale):
+    """K12: the forward's compares again and an add a winning position."""
+    n, h, w, c = features.shape
+    reads = c * pool_reads(rois, grad_out.shape[1], spatial_scale, (h, w))
+    return 2 * reads, nbytes(grad_out, features, rois, roi_indices, grad)
 
 
 def nms_stops(idx, mask, n, max_out):
@@ -162,11 +222,14 @@ def nms_pairs(idx, mask, n, max_out):
     return pairs
 
 
-def nms_cost(boxes, valid, idx, mask):
+def nms_blocked_cost(out, boxes, valid, thresh, max_out):
     """K2 and the standalone K3: 12 operations an IoU pair."""
-    n, max_out = valid.shape[1], idx.shape[1]
-    return (12 * nms_pairs(idx, mask, n, max_out),
+    idx, mask = out
+    return (12 * nms_pairs(idx, mask, valid.shape[1], max_out),
             nbytes(boxes, valid, idx, mask))
+
+
+nms_small_cost = nms_blocked_cost
 
 
 def decode_pairs(cls_bbox, prob, valid, thresh, k, nms_thresh, d):
@@ -199,38 +262,39 @@ def decode_pairs(cls_bbox, prob, valid, thresh, k, nms_thresh, d):
     return pairs, int(sel.sum())
 
 
-def decode_select_cost(cls_bbox, prob, roi_valid, score_thresh,
-                       topk_per_class, nms_thresh, d, outputs):
+def decode_select_cost(out, cls_bbox, prob, roi_valid, score_thresh,
+                       topk_per_class, nms_thresh, d):
     """K3 on the serving path (``decode_select``): its IoU pairs."""
     pairs, _ = decode_pairs(cls_bbox, prob, roi_valid, score_thresh,
                             topk_per_class, nms_thresh, d)
-    return 12 * pairs, nbytes(cls_bbox, prob, roi_valid, *outputs)
+    return 12 * pairs, nbytes(cls_bbox, prob, roi_valid, *out)
 
 
-def anchor_targets_cost(bbox, bbox_valid, anchors, pri_pos, pri_neg, loc,
-                        label):
+def anchor_targets_cost(out, bbox, bbox_valid, anchors, img_size, pri_pos,
+                        pri_neg, cfg):
     """K9a: an IoU (12 operations) per (anchor, valid gt) pair."""
     n_gt = int(bbox_valid.sum())
     return (12 * anchors.shape[0] * n_gt,
-            nbytes(bbox, bbox_valid, anchors, pri_pos, pri_neg, loc, label))
+            nbytes(bbox, bbox_valid, anchors, pri_pos, pri_neg, *out))
 
 
-def proposal_targets_cost(inputs, outputs, mask_size):
+def proposal_targets_cost(out, roi, roi_valid, bbox, label, bbox_valid,
+                          mask, pri_pos, pri_neg, cfg, *normalize):
     """K9b + K8: an IoU per (candidate, valid gt) pair of an image, and a
     bilinear sample (8 operations) per mask cell of a positive slot.
-    ``inputs`` = (roi, roi_valid, bbox, label, bbox_valid, mask, pri_pos,
-    pri_neg), ``outputs`` = (sample_roi, gt_loc, gt_label, gt_mask)."""
-    roi, _, bbox, _, bbox_valid = inputs[:5]
+    ``out`` = (sample_roi, gt_loc, gt_label, gt_mask)."""
     cand = roi.shape[1] + bbox.shape[1]
-    positives = int((outputs[2] > 0).sum())
+    positives = int((out[2] > 0).sum())
     return (12 * cand * int(bbox_valid.sum())
-            + 8 * positives * mask_size * mask_size,
-            nbytes(*inputs, *outputs))
+            + 8 * positives * cfg.mask_size * cfg.mask_size,
+            nbytes(roi, roi_valid, bbox, label, bbox_valid, mask, pri_pos,
+                   pri_neg, *out))
 
 
-def stem_cost(x, weights, out):
+def stem_forward_cost(out, params, x):
     """K10: 2 a multiply-accumulate of conv1 (7x7/2, 3 -> 64, pad 3) over
-    its padded taps (``weights``: what the kernel reads, conv1 and bn1)."""
+    its padded taps; it reads conv1 and bn1."""
     n, h, w, _ = x.shape
     macs = n * -(-h // 2) * -(-w // 2) * 64 * 3 * 7 * 7
-    return 2 * macs, nbytes(x, *weights, out)
+    return 2 * macs, nbytes(x, params["conv1"]["W"], params["bn1"]["scale"],
+                            params["bn1"]["bias"], out)

@@ -131,22 +131,13 @@ def _checked_outputs(boxes, valid, max_out):
     return idx, mask
 
 
+@costs.kernel("nms_blocked", nms_blocked_plain)
 def nms_blocked(boxes, valid, thresh, max_out):
     """K2 wrapper: boxes (B, N, 4) sorted by descending score, valid (B, N)
     -> positions (B, max_out) int32 into the sorted order, -1 padded, and
     their validity (B, max_out) bool. The kernel keeps up to
     :func:`nms_kept_cap` kept boxes in shared memory; past that the rest go
     to a (B, max_out - cap, 4) float32 scratch allocated here."""
-    if boxes.device.type == "cpu":
-        idx, mask = costs.uncounted(nms_blocked_plain, boxes, valid, thresh,
-                                    max_out)
-    else:
-        idx, mask = _nms_blocked_kernel(boxes, valid, thresh, max_out)
-    costs.report("nms_blocked", costs.nms_cost, boxes, valid, idx, mask)
-    return idx, mask
-
-
-def _nms_blocked_kernel(boxes, valid, thresh, max_out):
     idx, mask = _checked_outputs(boxes, valid, max_out)
     b, n = valid.shape
     spill, cap = None, nms_kept_cap()
@@ -172,18 +163,9 @@ def nms_kept_cap():
     return _kernels.lib().mrcnn_nms_kept_cap()
 
 
+@costs.kernel("nms_small", nms_small_plain)
 def nms_small(boxes, valid, thresh, max_out):
     """K3 wrapper: as :func:`nms_blocked`, for N <= :data:`SMALL_MAX_N`."""
-    if boxes.device.type == "cpu":
-        idx, mask = costs.uncounted(nms_small_plain, boxes, valid, thresh,
-                                    max_out)
-    else:
-        idx, mask = _nms_small_kernel(boxes, valid, thresh, max_out)
-    costs.report("nms_small", costs.nms_cost, boxes, valid, idx, mask)
-    return idx, mask
-
-
-def _nms_small_kernel(boxes, valid, thresh, max_out):
     idx, mask = _checked_outputs(boxes, valid, max_out)
     b, n = valid.shape
     if n > SMALL_MAX_N:
@@ -327,6 +309,7 @@ def _tickets(device, n):
     return t
 
 
+@costs.kernel("decode_select", decode_select_plain, device_arg=1)
 def decode_select(cls_bbox, prob, roi_valid, score_thresh, topk_per_class,
                   nms_thresh, d):
     """K3 wrapper, the decode's selection (see :func:`decode_select_plain`
@@ -336,19 +319,6 @@ def decode_select(cls_bbox, prob, roi_valid, score_thresh, topk_per_class,
     bit. Raises on what the kernel does not take: contiguous float32 prob
     (N, Rp, C) and 16-byte aligned cls_bbox (N, Rp, C, 4), bool roi_valid
     (N, Rp), all on one device, within :func:`decode_limits`."""
-    if prob.device.type == "cpu":
-        out = costs.uncounted(decode_select_plain, cls_bbox, prob, roi_valid,
-                              score_thresh, topk_per_class, nms_thresh, d)
-    else:
-        out = _decode_select_kernel(cls_bbox, prob, roi_valid, score_thresh,
-                                    topk_per_class, nms_thresh, d)
-    costs.report("decode_select", costs.decode_select_cost, cls_bbox, prob,
-                 roi_valid, score_thresh, topk_per_class, nms_thresh, d, out)
-    return out
-
-
-def _decode_select_kernel(cls_bbox, prob, roi_valid, score_thresh,
-                          topk_per_class, nms_thresh, d):
     if prob.device.type != "cuda":
         raise ValueError(f"unsupported device {prob.device}")
     if (prob.dim() != 3 or prob.dtype != torch.float32

@@ -187,23 +187,10 @@ def _check_args(out_size, sampling_ratio, bin_stride):
         raise ValueError("out_size, bin_stride >= 1 and sampling_ratio >= 0")
 
 
+@costs.kernel("roi_align_grouped", roi_align_grouped_plain)
 def _roi_align_forward(features, rois, out_size, spatial_scale,
                        sampling_ratio, bin_stride):
     """K1 on CUDA tensors, the plain version on CPU tensors."""
-    if features.device.type == "cpu":
-        out = costs.uncounted(roi_align_grouped_plain, features, rois,
-                              out_size, spatial_scale, sampling_ratio,
-                              bin_stride)
-    else:
-        out = _roi_align_kernel(features, rois, out_size, spatial_scale,
-                                sampling_ratio, bin_stride)
-    costs.report("roi_align_grouped", costs.roi_align_cost, features, rois,
-                 None, out, spatial_scale, sampling_ratio, bin_stride)
-    return out
-
-
-def _roi_align_kernel(features, rois, out_size, spatial_scale,
-                      sampling_ratio, bin_stride):
     _check_cuda(features, "features", "NHWC")
     _check_aligned(features)
     n, h, w, c = features.shape
@@ -223,6 +210,8 @@ def _roi_align_kernel(features, rois, out_size, spatial_scale,
     return out
 
 
+@costs.kernel("roi_align_grouped_backward",
+              roi_align_grouped_backward_plain)
 def roi_align_grouped_backward(grad_out, rois, feat_hw, spatial_scale,
                                sampling_ratio=0, bin_stride=1):
     """K7 wrapper, the RoIAlign backward: grad_out (N, R, P, P, C) -> the
@@ -232,22 +221,6 @@ def roi_align_grouped_backward(grad_out, rois, feat_hw, spatial_scale,
     takes the kernel, which sums in a float32 buffer with atomics (so the
     sums' order, and their last bits, vary from run to run); it must start
     on a 16-byte boundary, as a fresh contiguous tensor does."""
-    if grad_out.device.type == "cpu":
-        grad = costs.uncounted(roi_align_grouped_backward_plain, grad_out,
-                               rois, feat_hw, spatial_scale, sampling_ratio,
-                               bin_stride)
-    else:
-        grad = _roi_align_backward_kernel(grad_out, rois, feat_hw,
-                                          spatial_scale, sampling_ratio,
-                                          bin_stride)
-    costs.report("roi_align_grouped_backward", costs.roi_align_cost, grad,
-                 rois, None, grad_out, spatial_scale, sampling_ratio,
-                 bin_stride)
-    return grad
-
-
-def _roi_align_backward_kernel(grad_out, rois, feat_hw, spatial_scale,
-                               sampling_ratio, bin_stride):
     _check_cuda(grad_out, "grad_out", "NRPPC")
     _check_aligned(grad_out, "grad_out")
     n, r, p, p2, c = grad_out.shape
@@ -396,24 +369,10 @@ def _check_roi_indices(roi_indices, n):
                              f"[{lo}, {hi}]")
 
 
+@costs.kernel("roi_align", roi_align_plain)
 def _roi_align_flat_forward(features, rois, roi_indices, out_size,
                             spatial_scale, sampling_ratio, bin_stride):
     """K4 on CUDA tensors, the plain version on CPU tensors."""
-    if features.device.type == "cpu":
-        out = costs.uncounted(roi_align_plain, features, rois, roi_indices,
-                              out_size, spatial_scale, sampling_ratio,
-                              bin_stride)
-    else:
-        out = _roi_align_flat_kernel(features, rois, roi_indices, out_size,
-                                     spatial_scale, sampling_ratio,
-                                     bin_stride)
-    costs.report("roi_align", costs.roi_align_cost, features, rois,
-                 roi_indices, out, spatial_scale, sampling_ratio, bin_stride)
-    return out
-
-
-def _roi_align_flat_kernel(features, rois, roi_indices, out_size,
-                           spatial_scale, sampling_ratio, bin_stride):
     _check_cuda(features, "features", "NHWC")
     _check_aligned(features)
     _check_cuda_flat(rois, roi_indices, features.device)
@@ -433,6 +392,7 @@ def _roi_align_flat_kernel(features, rois, roi_indices, out_size,
     return out
 
 
+@costs.kernel("roi_align_backward", roi_align_backward_plain)
 def roi_align_backward(grad_out, rois, roi_indices, feat_shape,
                        spatial_scale, sampling_ratio=0, bin_stride=1):
     """K13 wrapper, the flat RoIAlign backward: grad_out (R, P, P, C) -> the
@@ -440,23 +400,6 @@ def roi_align_backward(grad_out, rois, roi_indices, feat_shape,
     tensor takes :func:`roi_align_backward_plain`; a CUDA tensor the kernel
     (K7's kernel with the roi's image from its index; float32 atomics,
     cast at the end; grad_out on a 16-byte boundary)."""
-    if grad_out.device.type == "cpu":
-        grad = costs.uncounted(roi_align_backward_plain, grad_out, rois,
-                               roi_indices, feat_shape, spatial_scale,
-                               sampling_ratio, bin_stride)
-    else:
-        grad = _roi_align_flat_backward_kernel(
-            grad_out, rois, roi_indices, feat_shape, spatial_scale,
-            sampling_ratio, bin_stride)
-    costs.report("roi_align_backward", costs.roi_align_cost, grad, rois,
-                 roi_indices, grad_out, spatial_scale, sampling_ratio,
-                 bin_stride)
-    return grad
-
-
-def _roi_align_flat_backward_kernel(grad_out, rois, roi_indices, feat_shape,
-                                    spatial_scale, sampling_ratio,
-                                    bin_stride):
     _check_cuda(grad_out, "grad_out", "RPPC")
     _check_aligned(grad_out, "grad_out")
     r, p, p2, c = grad_out.shape
@@ -647,6 +590,7 @@ def crop_and_resize_backward_plain(grad_out, rois, roi_indices, feat_shape,
     return df.reshape(n, h, w, c).to(grad_out.dtype)
 
 
+@costs.kernel("crop_and_resize", crop_and_resize_plain)
 def _crop_and_resize_forward(features, rois, roi_indices, out_size,
                              spatial_scale):
     """K5 on CUDA tensors, the plain version on CPU tensors. The kernel
@@ -654,19 +598,6 @@ def _crop_and_resize_forward(features, rois, roi_indices, out_size,
     (bf16) or 4 (float32) and the features and the output start on 16-byte
     boundaries, and one channel a thread otherwise: its entry point picks
     the form, so no alignment is checked here."""
-    if features.device.type == "cpu":
-        out = costs.uncounted(crop_and_resize_plain, features, rois,
-                              roi_indices, out_size, spatial_scale)
-    else:
-        out = _crop_and_resize_kernel(features, rois, roi_indices, out_size,
-                                      spatial_scale)
-    costs.report("crop_and_resize", costs.crop_resize_cost, features, rois,
-                 roi_indices, out)
-    return out
-
-
-def _crop_and_resize_kernel(features, rois, roi_indices, out_size,
-                            spatial_scale):
     _check_cuda(features, "features", "NHWC")
     _check_cuda_flat(rois, roi_indices, features.device)
     _check_args(out_size, 0, 1)
@@ -683,6 +614,7 @@ def _crop_and_resize_kernel(features, rois, roi_indices, out_size,
     return out
 
 
+@costs.kernel("crop_and_resize_backward", crop_and_resize_backward_plain)
 def crop_and_resize_backward(grad_out, rois, roi_indices, feat_shape,
                              spatial_scale):
     """K11 wrapper, the crop-and-resize backward: grad_out (R, P, P, C) ->
@@ -693,19 +625,6 @@ def crop_and_resize_backward(grad_out, rois, roi_indices, feat_shape,
     vary from run to run), then casts at the end. It reads 16-byte channel
     vectors when C is a multiple of 8 (bf16) or 4 (float32) and grad_out
     starts on a 16-byte boundary, and one channel a thread otherwise."""
-    if grad_out.device.type == "cpu":
-        grad = costs.uncounted(crop_and_resize_backward_plain, grad_out,
-                               rois, roi_indices, feat_shape, spatial_scale)
-    else:
-        grad = _crop_and_resize_backward_kernel(grad_out, rois, roi_indices,
-                                                feat_shape, spatial_scale)
-    costs.report("crop_and_resize_backward", costs.crop_resize_cost, grad,
-                 rois, roi_indices, grad_out)
-    return grad
-
-
-def _crop_and_resize_backward_kernel(grad_out, rois, roi_indices, feat_shape,
-                                     spatial_scale):
     _check_cuda(grad_out, "grad_out", "RPPC")
     r, p, p2, c = grad_out.shape
     if p != p2:
@@ -873,20 +792,9 @@ def roi_pool_backward_plain(grad_out, features, rois, roi_indices,
     return grad.reshape(n, h, w, c).to(grad_out.dtype)
 
 
+@costs.kernel("roi_pool", roi_pool_plain)
 def _roi_pool_forward(features, rois, roi_indices, out_size, spatial_scale):
     """K6 on CUDA tensors, the plain version on CPU tensors."""
-    if features.device.type == "cpu":
-        out = costs.uncounted(roi_pool_plain, features, rois, roi_indices,
-                              out_size, spatial_scale)
-    else:
-        out = _roi_pool_kernel(features, rois, roi_indices, out_size,
-                               spatial_scale)
-    costs.report("roi_pool", costs.roi_pool_cost, features, rois,
-                 roi_indices, out, spatial_scale)
-    return out
-
-
-def _roi_pool_kernel(features, rois, roi_indices, out_size, spatial_scale):
     _check_cuda(features, "features", "NHWC")
     _check_cuda_flat(rois, roi_indices, features.device)
     _check_args(out_size, 0, 1)
@@ -903,6 +811,7 @@ def _roi_pool_kernel(features, rois, roi_indices, out_size, spatial_scale):
     return out
 
 
+@costs.kernel("roi_pool_backward", roi_pool_backward_plain)
 def roi_pool_backward(grad_out, features, rois, roi_indices, spatial_scale):
     """K12 wrapper, the roi_pool backward: grad_out (R, P, P, C) and the
     forward's features (N, H, W, C) of the same dtype -> the features' grad,
@@ -915,19 +824,6 @@ def roi_pool_backward(grad_out, features, rois, roi_indices, spatial_scale):
     atomics, cast at the end), which reads 16-byte channel vectors when C
     is a multiple of 8 (bf16) or 4 (float32) and one channel a thread
     otherwise, and takes bins of at most 32 rows."""
-    if grad_out.device.type == "cpu":
-        grad = costs.uncounted(roi_pool_backward_plain, grad_out, features,
-                               rois, roi_indices, spatial_scale)
-    else:
-        grad = _roi_pool_backward_kernel(grad_out, features, rois,
-                                         roi_indices, spatial_scale)
-    costs.report("roi_pool_backward", costs.roi_pool_cost, features, rois,
-                 roi_indices, grad, spatial_scale, grad_out)
-    return grad
-
-
-def _roi_pool_backward_kernel(grad_out, features, rois, roi_indices,
-                              spatial_scale):
     _check_cuda(grad_out, "grad_out", "RPPC")
     _check_cuda(features, "features", "NHWC")
     r, p, p2, c = grad_out.shape

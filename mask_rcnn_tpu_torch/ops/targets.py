@@ -317,25 +317,12 @@ def anchor_targets_plain(bbox, bbox_valid, anchors, img_size, pri_pos,
     return loc, label
 
 
+@costs.kernel("anchor_targets", anchor_targets_plain, device_arg=2)
 def anchor_targets(bbox, bbox_valid, anchors, img_size, pri_pos, pri_neg,
                    cfg: AnchorTargetConfig):
     """K9a wrapper; see :func:`anchor_targets_plain`. On the card: float32
     anchors, boxes and priorities, bool validity, all contiguous on one
     device, G and S within :func:`kernel_limits`."""
-    if anchors.device.type == "cpu":
-        loc, label = costs.uncounted(anchor_targets_plain, bbox, bbox_valid,
-                                     anchors, img_size, pri_pos, pri_neg,
-                                     cfg)
-    else:
-        loc, label = _anchor_targets_kernel(bbox, bbox_valid, anchors,
-                                            img_size, pri_pos, pri_neg, cfg)
-    costs.report("anchor_targets", costs.anchor_targets_cost, bbox,
-                 bbox_valid, anchors, pri_pos, pri_neg, loc, label)
-    return loc, label
-
-
-def _anchor_targets_kernel(bbox, bbox_valid, anchors, img_size, pri_pos,
-                           pri_neg, cfg):
     if anchors.dim() != 2 or anchors.shape[1] != 4:
         raise ValueError("anchors must be (S, 4)")
     s = anchors.shape[0]
@@ -442,6 +429,7 @@ def proposal_targets_plain(roi, roi_valid, bbox, label, bbox_valid, mask,
     return sample_roi, gt_loc, gt_roi_label, gt_mask
 
 
+@costs.kernel("proposal_targets", proposal_targets_plain)
 def proposal_targets(roi, roi_valid, bbox, label, bbox_valid, mask, pri_pos,
                      pri_neg, cfg: ProposalTargetConfig, loc_normalize_mean,
                      loc_normalize_std, mask_packed=False):
@@ -449,23 +437,6 @@ def proposal_targets(roi, roi_valid, bbox, label, bbox_valid, mask, pri_pos,
     float32 rois, boxes and priorities, bool validity, int32 labels, uint8
     (or bool, unpacked) masks, all contiguous on one device,
     G and P + G within :func:`kernel_limits`."""
-    inputs = (roi, roi_valid, bbox, label, bbox_valid, mask, pri_pos,
-              pri_neg)
-    if roi.device.type == "cpu":
-        out = costs.uncounted(proposal_targets_plain, *inputs, cfg,
-                              loc_normalize_mean, loc_normalize_std,
-                              mask_packed)
-    else:
-        out = _proposal_targets_kernel(*inputs, cfg, loc_normalize_mean,
-                                       loc_normalize_std, mask_packed)
-    costs.report("proposal_targets", costs.proposal_targets_cost, inputs,
-                 out, cfg.mask_size)
-    return out
-
-
-def _proposal_targets_kernel(roi, roi_valid, bbox, label, bbox_valid, mask,
-                             pri_pos, pri_neg, cfg, loc_normalize_mean,
-                             loc_normalize_std, mask_packed):
     if roi.dim() != 3 or roi.shape[2] != 4:
         raise ValueError("rois must be (N, P, 4)")
     n, p = roi.shape[:2]

@@ -11,7 +11,8 @@
   the port's steps are host-paced, so CUDA events around a chain would time
   the host. These helpers keep the chain (each call's output folded into
   the next feed) and read a ``torch.profiler`` capture of it instead: the
-  union of the device activity intervals, over the calls;
+  union of the device activity intervals, over the calls, from a capture
+  that is checked for lost activities;
 * :func:`profile_stages`: the JAX function's per-stage table;
 * :func:`cost_of`: (FLOPs, bytes) of a call, replacing XLA's
   ``cost_analysis()``: FLOPs from ``FlopCounterMode`` (torch's convention:
@@ -107,37 +108,118 @@ def time_fn(fn: Callable, *args, iters: int = 10, warmup: int = 2) -> float:
     return (time.perf_counter() - t0) / iters * 1000.0
 
 
-def _busy_ms(prof) -> float:
-    """The union of the device activity intervals (kernels, copies,
-    memsets) of a profiler capture, in ms."""
-    spans = sorted(
-        (ev.time_range.start, ev.time_range.end) for ev in prof.events()
-        if ev.device_type == torch.autograd.DeviceType.CUDA)
-    busy, end = 0.0, float("-inf")
-    for lo, hi in spans:
+# Host calls of the CUDA runtime and driver that each put one activity (a
+# kernel, a copy or a memset) on the device; ``cudaLaunchHostFunc`` puts
+# none there.
+_LAUNCHES = ("cudaLaunch", "cuLaunch", "cudaMemcpy", "cudaMemset",
+             "cuMemcpy", "cuMemset")
+_NO_DEVICE_ACTIVITY = ("cudaLaunchHostFunc",)
+# The annotation around each run of :func:`device_busy_ms`.
+_RUN_MARK = "profiling.device_busy_ms run"
+
+
+def _records(prof):
+    """(on the device?, name, correlation id, start ns, end ns) of every
+    activity of a profiler capture but the annotations' spans on the
+    device timeline, which are no device work (each annotation keeps its
+    host record)."""
+    cuda = torch.autograd.DeviceType.CUDA
+    return [(ev.device_type() == cuda, ev.name(), ev.correlation_id(),
+             ev.start_ns(), ev.end_ns())
+            for ev in prof.profiler.kineto_results.events()
+            if not (ev.device_type() == cuda and ev.is_user_annotation())]
+
+
+def _checked_busy_ns(records, runs: int) -> float:
+    """The union of the device activity of the launches made inside
+    ``runs`` identical runs, each in a :data:`_RUN_MARK` annotation;
+    raises on a capture that lost activities of the runs.
+
+    The profiler can lose device records without a sign: late in a long
+    process on the H100's machine every capture lost 9 (1 kernel of 10,
+    9 of 300 or of 9032). So every host launch in a run
+    (:data:`_LAUNCHES`) must have its device activity, found by
+    correlation id, and every run must show the same, nonzero, number of
+    launches, which catches a run that lost host and device records
+    together. :data:`LAST_CAPTURE` keeps what the capture lost outside
+    the runs, where :func:`device_busy_ms` puts launches to spare."""
+    device = {}
+    for r in records:
+        if r[0]:
+            device.setdefault(r[2], []).append((r[3], r[4]))
+    marks = sorted((r[3], r[4]) for r in records
+                   if not r[0] and r[1] == _RUN_MARK)
+    launches = sorted((r[3], r[1], r[2]) for r in records if not r[0]
+                      and r[1].startswith(_LAUNCHES)
+                      and not r[1].startswith(_NO_DEVICE_ACTIVITY))
+    if len(marks) != runs:
+        raise RuntimeError(f"short profiler capture: {len(marks)} of "
+                           f"{runs} runs recorded on the host")
+    inside = [any(lo <= t <= hi for lo, hi in marks) for t, _, _ in launches]
+    ours = [x for x, keep in zip(launches, inside) if keep]
+    spare = [x for x, keep in zip(launches, inside) if not keep]
+    LAST_CAPTURE.update(
+        launches=len(ours), spare=len(spare),
+        spare_lost=sum(x[2] not in device for x in spare),
+        orphans=len(set(device) - {x[2] for x in launches}))
+    lost = [i for i, x in enumerate(ours) if x[2] not in device]
+    if lost:
+        raise RuntimeError(
+            f"short profiler capture: {len(lost)} of {len(ours)} launches "
+            f"have no device activity (at {lost[:12]}; "
+            f"{sorted({ours[i][1] for i in lost})}; {LAST_CAPTURE})")
+    per_run = [sum(lo <= x[0] <= hi for x in ours) for lo, hi in marks]
+    if min(per_run) == 0 or len(set(per_run)) > 1:
+        raise RuntimeError(f"short profiler capture: launches a run "
+                           f"{per_run}, not one nonzero count")
+    busy, end = 0, float("-inf")
+    for lo, hi in sorted(span for x in ours for span in device[x[2]]):
         if hi <= end:
             continue
         busy += hi - max(lo, end)
         end = hi
-    return busy / 1e3
+    return busy
 
 
-def device_busy_ms(run, calls: int) -> float:
-    """Device-busy ms per call of ``run()`` (``calls`` calls a run): the
-    union of the device activity of one profiler capture, over ``calls``;
-    raises if the capture holds no device work."""
-    from torch.profiler import ProfilerActivity, profile
+# What the last checked capture held: launches in its runs, launches to
+# spare around them and how many of those lost their device activity, and
+# device activities of no launch.
+LAST_CAPTURE = {}
+# Launches to spare before and after the runs of a capture: the profiler's
+# losses seen on the H100's machine were 9 a capture.
+_SPARE_LAUNCHES = 16
+
+
+def _spare_launches():
+    x = torch.zeros(1, device="cuda")
+    for _ in range(_SPARE_LAUNCHES):
+        x.add_(1.0)
+    torch.cuda.synchronize()
+
+
+def device_busy_ms(run, calls: int, runs: int = 1) -> float:
+    """Device-busy ms per call: ``runs`` runs of ``run()``, ``calls``
+    calls each, in one profiler capture; the union of the device activity
+    of the runs' launches over ``runs * calls``. Raises if the capture
+    holds no device work or lost any of the runs' (:func:`_checked_busy_ns`):
+    each run must launch the same work."""
+    from torch.profiler import ProfilerActivity, profile, record_function
 
     # No acc_events: on the H100's machine (torch 2.11) the capture that
     # followed a chain captured with it kept one kernel in ten.
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        run()
-        torch.cuda.synchronize()
-    busy = _busy_ms(prof)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        _spare_launches()
+        for _ in range(runs):
+            with record_function(_RUN_MARK):
+                run()
+                torch.cuda.synchronize()
+        _spare_launches()
+    busy = _checked_busy_ns(_records(prof), runs)
     if busy <= 0:
         raise RuntimeError("the profiler captured no device activity on "
                            "the card: no device time to report")
-    return busy / calls
+    return busy / 1e6 / (runs * calls)
 
 
 def time_fn_chained(build: Callable, feed, reps: int = 50,
@@ -152,7 +234,9 @@ def time_fn_chained(build: Callable, feed, reps: int = 50,
     union of the device activity intervals over the ``iters * reps`` calls:
     the device's busy time without the host's dispatch gaps, what the JAX
     helper's jitted chain measures. It raises when the capture holds no
-    device activity. On the CPU it is the chains' host time per call.
+    device activity or lost some (:func:`device_busy_ms`: each chain must
+    launch the same work). On the CPU it is the chains' host time per
+    call.
     """
 
     def first_scalar(tree):
@@ -167,10 +251,7 @@ def time_fn_chained(build: Callable, feed, reps: int = 50,
 
     sync(chain())
     if feed.is_cuda:
-        def run():
-            for _ in range(iters):
-                chain()
-        return device_busy_ms(run, iters * reps)
+        return device_busy_ms(chain, reps, iters)
     t0 = time.perf_counter()
     for _ in range(iters):
         out = chain()
@@ -201,12 +282,7 @@ def time_train_steps_chained(step, state, batch, seed: int, reps: int = 12,
     float(chain())
     if _on_cuda(batch):
         losses = []
-
-        def run():
-            for _ in range(iters):
-                losses.append(chain())
-
-        ms = device_busy_ms(run, iters * reps)
+        ms = device_busy_ms(lambda: losses.append(chain()), reps, iters)
         float(losses[-1])
         return ms
     t0 = time.perf_counter()

@@ -127,20 +127,103 @@ def _rois(rng, n, r, h, w):
         np.float32)
 
 
+def _nbytes(*tensors):
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def _align_samples_from_jax(rois, idx, fh, fw, c, p, s):
+    """RoIAlign's bilinear samples for flat ``rois``, read off the grids
+    that the JAX function's interpolation matrices use: P*P*grid_y*grid_x
+    a roi."""
+    jra = importlib.import_module("mask_rcnn_tpu.ops.roi_align")
+    grids, interp = [], jra._interp_matrix
+    with pytest.MonkeyPatch.context() as mp, jax.disable_jit():
+        mp.setattr(jra, "_interp_matrix", lambda *a, **k: (
+            grids.append(np.asarray(a[2])), interp(*a, **k))[1])
+        jra.roi_align(jnp.zeros((2, fh, fw, c), jnp.float32),
+                      jnp.asarray(rois.reshape(-1, 4).numpy()),
+                      jnp.asarray(idx.numpy()), p, 1 / 16, bin_stride=s)
+    gy, gx = grids
+    return float((gy * gx).sum()) * p * p
+
+
+def _pool_reads_from_jax(rois, idx, n, fh, fw, p):
+    """Feature positions that max RoI pooling reads, from the JAX
+    function's own bins: pooling 1 + y*W + x gives each bin's last row and
+    column (+1), pooling its negation the first; an empty bin pools 0."""
+    jra = importlib.import_module("mask_rcnn_tpu.ops.roi_align")
+    pos = (1.0 + np.arange(fh * fw, dtype=np.float32)).reshape(1, fh, fw, 1)
+    pos = jnp.asarray(np.repeat(pos, n, axis=0))
+    args = (jnp.asarray(rois.numpy()), jnp.asarray(idx.numpy()), p, 1 / 16)
+    with jax.disable_jit():
+        last = np.asarray(jra.roi_pool(pos, *args))[..., 0].astype(int) - 1
+        first = -np.asarray(jra.roi_pool(-pos, *args))[..., 0].astype(int) - 1
+    rows = np.where(last >= 0, last // fw - first // fw + 1, 0)
+    cols = np.where(last >= 0, last % fw - first % fw + 1, 0)
+    return float((rows * cols).sum())
+
+
+def _greedy_scan(boxes, valid, thresh, max_out):
+    """A greedy NMS run row by row in numpy with the JAX suppression test
+    (``inter > thresh * union``): (kept rows, IoU pairs), a pair for each
+    row read against each box kept before it, until ``max_out`` are
+    kept."""
+    boxes = np.asarray(boxes, np.float32)
+    kept, pairs = [], 0
+    for j, box in enumerate(boxes):
+        if max_out and len(kept) == max_out:
+            break
+        pairs += len(kept)
+        if not valid[j]:
+            continue
+        ok = True
+        for k in kept:
+            ih = max(min(box[2], boxes[k, 2]) - max(box[0], boxes[k, 0]),
+                     np.float32(0))
+            iw = max(min(box[3], boxes[k, 3]) - max(box[1], boxes[k, 1]),
+                     np.float32(0))
+            inter = np.float32(ih * iw)
+            area = [np.float32(max(b[2] - b[0], 0) * max(b[3] - b[1], 0))
+                    for b in (box, boxes[k])]
+            if inter > np.float32(thresh) * (area[0] + area[1] - inter):
+                ok = False
+        if ok:
+            kept.append(j)
+    return kept, pairs
+
+
+def _decode_pairs(boxes, prob, valid, thresh, k, nms_thresh, d):
+    """IoU pairs of the decode's selection: per (image, foreground class)
+    the valid rows above ``thresh`` by falling score (ties by row), at
+    most ``k``, scanned greedily to ``d`` kept."""
+    pairs = 0
+    for i in range(prob.shape[0]):
+        for c in range(1, prob.shape[2]):
+            p = prob[i, :, c].numpy()
+            rows = [j for j in np.argsort(-p, kind="stable")
+                    if valid[i, j] and p[j] > thresh][:k]
+            pairs += _greedy_scan(boxes[i, rows, c].numpy(),
+                                  np.ones(len(rows), bool), nms_thresh, d)[1]
+    return pairs
+
+
 def _kernel_case(name):
     """(call, expected (flops, bytes)) of a kernel wrapper on CPU tensors,
-    the expectation from ``chip_smoke.py``'s conventions: bytes each input
-    once and each output once (``nbytes``), FLOPs 8 a sample and channel
-    (RoIAlign, crop-and-resize), 12 an IoU pair, a compare a read (max RoI
-    pooling), 2 a multiply-accumulate of the stem's conv."""
+    by the kernel bounds' conventions: bytes each input once and each
+    output once, FLOPs 8 a sample and channel (RoIAlign, crop-and-resize),
+    12 an IoU pair, a compare a read (max RoI pooling), 2 a
+    multiply-accumulate of the stem's conv. The counts come by routes of
+    their own, not from ``ops/costs.py``: samples from the JAX function's
+    grids, pooling reads from the JAX function's bins, IoU pairs from a
+    greedy NMS in numpy."""
     rng = np.random.RandomState(1)
-    nb = chip_smoke.nbytes
+    nb = _nbytes
     n, fh, fw, c = 2, 6, 8, 16
     feats = torch.from_numpy(rng.randn(n, fh, fw, c).astype(np.float32))
     rois_g = torch.from_numpy(_rois(rng, n, 5, fh * 16, fw * 16))
     rois_f = rois_g.reshape(-1, 4).contiguous()
     idx = torch.arange(10, dtype=torch.int32) // 5
-    samples = chip_smoke.align_samples(rois_g.numpy(), (fh, fw), 7, 2)
+    samples = _align_samples_from_jax(rois_f, idx, fh, fw, c, 7, 2)
     if name == "roi_align_grouped":
         out = ra.roi_align_grouped(feats, rois_g, 7, 1 / 16, 0, 2)
         return (lambda: ra.roi_align_grouped(feats, rois_g, 7, 1 / 16, 0, 2),
@@ -165,7 +248,7 @@ def _kernel_case(name):
         fn = getattr(ra, name)
         out = fn(feats, rois_f, idx, 14, 1 / 16)
         flops = (8 * out.numel() if name == "crop_and_resize"
-                 else c * chip_smoke.pool_reads(rois_f, 14, hw=(fh, fw)))
+                 else c * _pool_reads_from_jax(rois_f, idx, n, fh, fw, 14))
         return (lambda: fn(feats, rois_f, idx, 14, 1 / 16),
                 (flops, nb(feats, rois_f, idx, out)))
     if name == "crop_and_resize_backward":
@@ -178,7 +261,7 @@ def _kernel_case(name):
         g = torch.from_numpy(rng.randn(10, 14, 14, c).astype(np.float32))
         args = (g, feats, rois_f, idx, 1 / 16)
         return (lambda: ra.roi_pool_backward(*args),
-                (2 * c * chip_smoke.pool_reads(rois_f, 14, hw=(fh, fw)),
+                (2 * c * _pool_reads_from_jax(rois_f, idx, n, fh, fw, 14),
                  nb(g, feats, rois_f, idx, ra.roi_pool_backward(*args))))
     if name in ("nms_blocked", "nms_small"):
         b = torch.from_numpy(chip_smoke.proposal_like_boxes(rng, 300, 64,
@@ -186,9 +269,10 @@ def _kernel_case(name):
         v = torch.from_numpy(rng.rand(1, 300) > 0.1)
         fn = getattr(nms, name)
         idx_out, mask = fn(b, v, 0.5, 40)
+        kept, pairs = _greedy_scan(b[0], v[0].numpy(), 0.5, 40)
+        assert idx_out[0][mask[0]].tolist() == kept
         return (lambda: fn(b, v, 0.5, 40),
-                (12 * chip_smoke.nms_pairs(idx_out, mask, 300, 40),
-                 nb(b, v, idx_out, mask)))
+                (12 * pairs, nb(b, v, idx_out, mask)))
     if name == "decode_select":
         rp, cls = 64, 5
         boxes = torch.from_numpy(np.stack(
@@ -198,7 +282,7 @@ def _kernel_case(name):
             rng.randn(1, rp, cls).astype(np.float32) * 2), -1)
         valid = torch.from_numpy(rng.rand(1, rp) > 0.1)
         args = (boxes.contiguous(), prob, valid, 0.05, 16, 0.5, 10)
-        _, pairs = chip_smoke.decode_work(torch, *args)
+        pairs = _decode_pairs(*args)
         return (lambda: nms.decode_select(*args),
                 (12 * pairs, nb(*args[:3], *nms.decode_select(*args))))
     if name == "anchor_targets":
@@ -252,8 +336,9 @@ KERNELS = ("roi_align_grouped", "roi_align_grouped_backward", "roi_align",
 @pytest.mark.parametrize("name", KERNELS)
 def test_kernel_report_follows_the_smoke_conventions(name):
     """Each hand kernel's wrapper reports one launch of the work
-    ``chip_smoke.py`` bounds it by; on CPU tensors the plain version that
-    stands in for it adds nothing of its own to the count."""
+    ``chip_smoke.py`` bounds it by, counted here independently of
+    ``ops/costs.py``; on CPU tensors the plain version that stands in for
+    it adds nothing of its own to the count."""
     call, (flops, n_bytes) = _kernel_case(name)
     kernels = {}
     total = profiling.cost_of(call, kernels=kernels)
@@ -270,7 +355,8 @@ def test_reports_run_no_formula_without_a_counter(monkeypatch):
     def boom(*args):
         raise AssertionError("a cost formula ran with no counter active")
 
-    for fn in ("roi_align_cost", "nms_cost", "stem_cost"):
+    for fn in ("roi_align_grouped_cost", "roi_align_grouped_backward_cost",
+               "nms_blocked_cost", "stem_forward_cost"):
         monkeypatch.setattr(costs, fn, boom)
     assert costs.ACTIVE is None
     for name in ("roi_align_grouped", "roi_align_grouped_backward",
@@ -335,6 +421,81 @@ def test_time_train_steps_chained_carries_the_state():
     assert state.step == 5 + 3 * 3
     assert seen == [(5 + i, 7) for i in range(9)]
     assert torch.equal(state.params["w"], torch.full((2,), 9.0))
+
+
+def _capture(runs=3, per_run=4, lose_device=(), lose_run=None,
+             drop_mark=False):
+    """Records of a synthetic capture as ``profiling._records`` gives them:
+    a spare launch, then each run a host annotation holding ``per_run``
+    launches (a kernel launch, then a copy) and one host callback, each
+    launch's device activity 10 us long and 5 us after it; ``lose_device``
+    drops those launches' device records (0 is the spare's), ``lose_run``
+    a run's last launch and its device record."""
+    records, corr, t = [(False, "cudaLaunchKernel", 0, -50, -40)], 0, 0
+    if 0 not in lose_device:
+        records.append((True, "spare", 0, -30, -20))
+    for run in range(runs):
+        if not (drop_mark and run == 0):
+            records.append((False, profiling._RUN_MARK, 0, t,
+                            t + 100_000))
+        for i in range(per_run - (run == lose_run)):
+            corr += 1
+            name = "cudaLaunchKernel" if i % 2 == 0 else "cudaMemcpyAsync"
+            records.append((False, name, corr, t + 1000 * i + 10,
+                            t + 1000 * i + 20))
+            if corr not in lose_device:
+                records.append((True, f"kernel{i}", corr,
+                                t + 1000 * i + 25, t + 1000 * i + 10_025))
+        corr += 1
+        records.append((False, "cudaLaunchHostFunc", corr, t + 90_000,
+                        t + 90_010))
+        t += 200_000
+    return records
+
+
+@pytest.mark.parametrize("case", ["whole", "a spare launch's record lost",
+                                  "device records lost",
+                                  "a run's records lost", "a run unmarked",
+                                  "no launches"])
+def test_device_busy_checks_the_capture(case):
+    """``device_busy_ms`` reads a capture only when it holds every run
+    launch's device activity and the same number of launches in each run;
+    a capture that lost activities of its runs raises instead of reading
+    low, and a lost spare launch outside the runs is only counted."""
+    records = {
+        "whole": _capture(),
+        "a spare launch's record lost": _capture(lose_device=(0,)),
+        "device records lost": _capture(lose_device=(2, 7, 8)),
+        "a run's records lost": _capture(lose_run=1),
+        "a run unmarked": _capture(drop_mark=True),
+        "no launches": _capture(per_run=0),
+    }[case]
+    if case in ("whole", "a spare launch's record lost"):
+        # four overlapping 10 us activities 1 us apart: 13 us a run
+        assert profiling._checked_busy_ns(records, 3) == 3 * (3000 + 10_000)
+        assert profiling.LAST_CAPTURE == {
+            "launches": 12, "spare": 1, "spare_lost": int(case != "whole"),
+            "orphans": 0}
+        return
+    with pytest.raises(RuntimeError, match="short profiler capture"):
+        profiling._checked_busy_ns(records, 3)
+
+
+def test_device_busy_reads_a_real_capture():
+    """``_records`` reads a real profiler capture: each run's annotation is
+    a host record (its span on the device timeline is no device work), and
+    a capture without launches is refused as short."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        for _ in range(2):
+            with record_function(profiling._RUN_MARK):
+                torch.ones(4) @ torch.ones(4)
+    records = profiling._records(prof)
+    marks = [r for r in records if r[1] == profiling._RUN_MARK]
+    assert len(marks) == 2 and not any(r[0] for r in marks)
+    with pytest.raises(RuntimeError, match="launches a run"):
+        profiling._checked_busy_ns(records, 2)
 
 
 def test_profile_stages_prints_the_jax_table(monkeypatch, capsys):
