@@ -124,7 +124,12 @@ GPU.
    ``launches`` only); (c) ``check_eval_memory`` at ``--images 200 --raw``
    and ``--images 50``, RSS bounded; (d) ``check_dtype_parity`` at its tiny
    settings on the card, its rehearsals and their drivers run in this
-   process.
+   process;
+12. the port's headline benchmark, ``python -m mask_rcnn_tpu_torch.bench``
+   (``main([])``) in this process: its JSON line printed beside the card's
+   name and power limit, every number finite and above 0, ``0 < mfu <
+   1.05``, ``batch`` 2, ``dtype`` bfloat16, ``image_hw`` [832, 1344]; K1,
+   K2, K3, K7, K9a, K9b and K10 launched (counted in ``launches`` only).
 
 Prints the card's name and power limit, each path's times, one JSON line
 of kernel results (``launches`` over every main-path run above,
@@ -2987,6 +2992,56 @@ def drive_profiling(torch, train_align, kernel_ms):
     return counts, numbers
 
 
+# Phase 12 must launch these: K10, K1, K2, K3, K7, K9a, K9b.
+BENCH_KERNELS = ("stem_forward", "roi_align_grouped", "nms_blocked",
+                 "decode_select", "roi_align_grouped_backward",
+                 "anchor_targets", "proposal_targets")
+
+
+def drive_bench(torch):
+    """Phase 12: ``mask_rcnn_tpu_torch.bench.main([])``, the port's
+    headline benchmark at its defaults, in this process. Prints its JSON
+    line and its dispatch-included rate beside the card's name and power
+    limit, and fails unless every number is finite and above 0, ``0 < mfu
+    < 1.05``, the train step ran at batch 2 in bf16 at 832x1344 and
+    :data:`BENCH_KERNELS` were launched. Returns the launch counts and the
+    numbers."""
+    import contextlib
+    import io
+
+    from mask_rcnn_tpu_torch import bench
+    from mask_rcnn_tpu_torch.examples import _profile_common
+
+    wrappers = _profile_common.kernel_wrappers()
+    for w in wrappers.values():
+        w.launches = 0
+    t0 = time.perf_counter()
+    out, err = io.StringIO(), io.StringIO()
+    try:
+        with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+            code = bench.main([])
+    finally:
+        print(f"phase 12, bench stderr:\n{err.getvalue()[-4000:]}")
+    seconds = time.perf_counter() - t0
+    counts = {k: wrappers[k].launches for k in BENCH_KERNELS}
+    lines = out.getvalue().strip().splitlines()
+    assert code == 0 and lines, (code, out.getvalue()[-4000:])
+    result = json.loads(lines[-1])
+    print(f"phase 12, bench ({seconds:.1f} s) on {nvidia_smi()}: "
+          f"{json.dumps(result)}")
+    train = result["train"]
+    numbers = [result["value"], result["vs_baseline"], train["step_ms"],
+               train["images_per_sec"], train["mfu"]]
+    assert all(isinstance(x, (int, float)) and np.isfinite(x) and x > 0
+               for x in numbers), f"bench numbers: {numbers}"
+    assert 0 < train["mfu"] < 1.05, f"bench mfu {train['mfu']}"
+    assert (train["batch"], train["dtype"], train["image_hw"]) == (
+        2, "bfloat16", [832, 1344]), train
+    require_launched(counts, "bench (phase 12)")
+    return counts, {"result": result, "stderr": err.getvalue().strip(),
+                    "seconds": seconds}
+
+
 # ---- Phase 9: data parallelism on the card --------------------------------
 
 DP_STEPS = 3  # full-width steps of the two-rank runs and their references
@@ -3667,6 +3722,9 @@ def main(argv=None) -> int:
         {k: results[k]["ms"] for k in ("roi_align_grouped", "nms_blocked")})
     count(counts, False)
     profiled["launches"] = counts
+    counts, benched = drive_bench(torch)
+    count(counts, False)
+    benched["launches"] = counts
     for name, entry in results.items():
         # nms_small serves no main path since decode_select took the decode
         entry["launches"] = launches.get(name, 0)
@@ -3677,7 +3735,7 @@ def main(argv=None) -> int:
                       "entry_points": entry_points,
                       "data_parallel": data_parallel,
                       "last_mile": last_mile, "profiling": profiled,
-                      "card": smi}))
+                      "bench": benched, "card": smi}))
     order = ("roi_align_grouped", "nms_blocked", "nms_small",
              "decode_select", "roi_align_grouped_backward", "anchor_targets",
              "proposal_targets", "crop_and_resize",
