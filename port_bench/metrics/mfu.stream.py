@@ -1,0 +1,8 @@
+"""Analytic FLOPs of the images served in the window over its seconds, as a
+share of the bf16 peak."""
+
+from port_bench import readers
+
+
+def read(run):
+    return readers.mfu(run)
