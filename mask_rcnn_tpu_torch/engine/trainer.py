@@ -27,6 +27,7 @@ from mask_rcnn_tpu_torch.models.targets import (
     ProposalTargetConfig,
 )
 from mask_rcnn_tpu_torch.models.train_model import train_loss
+from mask_rcnn_tpu_torch.utils import profiling
 from mask_rcnn_tpu_torch.utils.checkpoint import (
     flatten_params,
     unflatten_params,
@@ -163,31 +164,47 @@ def make_train_step(cfg: MaskRCNNConfig, optimizer: MomentumSGD,
     ``state.momentum`` in place under ``torch.no_grad()`` and returns a
     state that shares them, with the step incremented; the metrics are
     detached 0-d tensors on the device (reading them syncs the host).
+
+    Spans (``utils/profiling.py``): ``mrcnn.train_step`` around the call,
+    ``mrcnn.forward`` (``train_loss``), ``mrcnn.backward``
+    (``autograd.grad``), ``mrcnn.all_reduce`` (both all-reduces, under
+    ``data_parallel``) and ``mrcnn.update`` inside it, and
+    ``mrcnn.first_call`` around a call whose padded image batch this
+    process has not run.
     """
     p_cfg = proposal_cfg or ProposalTargetConfig()
     a_cfg = anchor_cfg or AnchorTargetConfig()
 
-    def step_fn(state: TrainState, batch, rng, data_parallel=None):
+    def step(state: TrainState, batch, rng, data_parallel):
         if isinstance(rng, (int, np.integer)):
             dev = batch["image"].device
             rng = torch.Generator(device=dev).manual_seed(
                 step_seed(int(rng), state.step))
         flat = flatten_params(state.params)
         names = sorted(optimizer.trainable)
-        loss, metrics = train_loss(state.params, cfg, batch, rng,
-                                   anchor_cfg=a_cfg, proposal_cfg=p_cfg,
-                                   data_parallel=data_parallel)
-        grads = torch.autograd.grad(loss, [flat[k] for k in names])
+        with profiling.span("mrcnn.forward"):
+            loss, metrics = train_loss(state.params, cfg, batch, rng,
+                                       anchor_cfg=a_cfg, proposal_cfg=p_cfg,
+                                       data_parallel=data_parallel)
+        with profiling.span("mrcnn.backward"):
+            grads = torch.autograd.grad(loss, [flat[k] for k in names])
         metrics = {k: v.detach() for k, v in metrics.items()}
         if data_parallel is not None:
-            grads = data_parallel.all_reduce_grads(grads)
-            summed = data_parallel.all_reduce(torch.stack(list(
-                metrics.values())))
+            with profiling.span("mrcnn.all_reduce"):
+                grads = data_parallel.all_reduce_grads(grads)
+                summed = data_parallel.all_reduce(torch.stack(list(
+                    metrics.values())))
             metrics = dict(zip(metrics, summed.unbind()))
-        optimizer.apply(state.params, state.momentum,
-                        dict(zip(names, grads)), state.step)
+        with profiling.span("mrcnn.update"):
+            optimizer.apply(state.params, state.momentum,
+                            dict(zip(names, grads)), state.step)
         return TrainState(state.params, state.momentum, state.step + 1), \
             metrics
 
-    return step_fn
+    def step_fn(state: TrainState, batch, rng, data_parallel=None):
+        image = batch["image"]
+        with profiling.first_call(("train", *image.shape[:3], image.dtype)), \
+                profiling.span("mrcnn.train_step"):
+            return step(state, batch, rng, data_parallel)
 
+    return step_fn

@@ -32,6 +32,7 @@ from mask_rcnn_tpu_torch.parallel.mesh import (
     make_parallel_predict_step,
     replicate_params,
 )
+from mask_rcnn_tpu_torch.utils import profiling
 from mask_rcnn_tpu_torch.utils.checkpoint import (
     conform_params,
     flatten_params,
@@ -250,6 +251,36 @@ class MaskRCNNResNet:
         return self._replicas[1]
 
     # -- preprocessing ---------------------------------------------------
+    def _resize_plan(self, imgs: Sequence[np.ndarray]):
+        """(scale, out_h, out_w) of each (3, H, W) image: the short side to
+        ``min_size``, capped so that the long side stays within
+        ``max_size``, cv2's rounding of ``dsize``."""
+        cfg = self.config
+        plan = []
+        for img in imgs:
+            if img.ndim != 3:
+                raise ValueError("expected (3, H, W) images")
+            _, h, w = img.shape
+            scale = 1.0
+            if cfg.min_size:
+                scale = cfg.min_size / min(h, w)
+            if cfg.max_size and scale * max(h, w) > cfg.max_size:
+                scale = cfg.max_size / max(h, w)
+            # cv2's dsize for fx=fy=scale: round half to even
+            plan.append((scale, int(round(h * scale)), int(round(w * scale))))
+        return plan
+
+    def _padded_hw(self, plan):
+        """(H, W) of the batch that holds the resized images of ``plan``:
+        the largest orientation bucket, or the sides rounded up to 32."""
+        cfg = self.config
+        if self.pad_to_bucket:
+            shapes = [bucket_shape(h, w, cfg.min_size, cfg.max_size)
+                      for _, h, w in plan]
+            return max(s[0] for s in shapes), max(s[1] for s in shapes)
+        return (round_up(max(h for _, h, _ in plan), 32),
+                round_up(max(w for _, _, w in plan), 32))
+
     def prepare(self, imgs: Sequence[np.ndarray]):
         """Resize so the short side is ``min_size`` capped by ``max_size``
         (``scale = min_size / min(h, w)``, then ``max_size / max(h, w)`` if
@@ -261,20 +292,12 @@ class MaskRCNNResNet:
         host-to-device traffic), the resize result is rounded back to uint8
         and the mean is subtracted inside the predict step.
         """
+        return self._prepare(imgs, self._resize_plan(imgs))
+
+    def _prepare(self, imgs, plan):
         prepared, sizes, scales = [], [], []
-        cfg = self.config
         mean = None
-        for img in imgs:
-            if img.ndim != 3:
-                raise ValueError("expected (3, H, W) images")
-            _, h, w = img.shape
-            scale = 1.0
-            if cfg.min_size:
-                scale = cfg.min_size / min(h, w)
-            if cfg.max_size and scale * max(h, w) > cfg.max_size:
-                scale = cfg.max_size / max(h, w)
-            # cv2's dsize for fx=fy=scale: round half to even
-            out_h, out_w = int(round(h * scale)), int(round(w * scale))
+        for img, (scale, out_h, out_w) in zip(imgs, plan):
             chw = np.asarray(img)
             if self.uint8_input:
                 chw = np.clip(chw, 0, 255).astype(np.uint8)
@@ -287,39 +310,42 @@ class MaskRCNNResNet:
                 x = torch.clamp(torch.round(x), 0, 255).to(torch.uint8)
             else:
                 if mean is None:
-                    mean = _upload(np.asarray(cfg.mean, np.float32),
+                    mean = _upload(np.asarray(self.config.mean, np.float32),
                                    self.device)
                 x = x - mean
             prepared.append(x)
-            sizes.append((h, w))
+            sizes.append(tuple(img.shape[1:]))
             scales.append(scale)
         return prepared, sizes, scales
 
     # -- inference -------------------------------------------------------
     def predict_submit(self, imgs: Sequence[np.ndarray]):
         """Prepare, pad and launch the predict step without waiting for
-        the device. Returns a handle for :meth:`predict_collect`."""
-        prepared, sizes, scales = self.prepare(imgs)
-        n = len(prepared)
+        the device. Returns a handle for :meth:`predict_collect`.
+
+        Spans (``utils/profiling.py``): ``mrcnn.submit`` around the call,
+        ``mrcnn.prepare`` and ``mrcnn.predict_step`` inside it, and
+        ``mrcnn.first_call`` around a call whose padded batch this process
+        has not run."""
+        plan = self._resize_plan(imgs)
+        hp, wp = self._padded_hw(plan)
+        dtype = torch.uint8 if self.uint8_input else torch.float32
+        with profiling.first_call(("predict", len(plan), hp, wp, dtype)), \
+                profiling.span("mrcnn.submit"):
+            return self._submit(imgs, plan, (len(plan), hp, wp, 3), dtype)
+
+    def _submit(self, imgs, plan, shape, dtype):
         cfg = self.config
-        if self.pad_to_bucket:
-            shapes = [bucket_shape(p.shape[0], p.shape[1], cfg.min_size,
-                                   cfg.max_size) for p in prepared]
-            hp = max(s[0] for s in shapes)
-            wp = max(s[1] for s in shapes)
-        else:
-            hp = round_up(max(p.shape[0] for p in prepared), 32)
-            wp = round_up(max(p.shape[1] for p in prepared), 32)
+        with profiling.span("mrcnn.prepare"):
+            prepared, sizes, scales = self._prepare(imgs, plan)
         if self.uint8_input:
             # margin at the rounded mean -> ~0 after on-device subtraction
             fill = np.round(np.asarray(cfg.mean)).astype(np.uint8)
-            x = torch.empty((n, hp, wp, 3), dtype=torch.uint8,
-                            device=self.device)
+            x = torch.empty(shape, dtype=dtype, device=self.device)
             for c in range(3):
                 x[..., c] = int(fill[c])
         else:
-            x = torch.zeros((n, hp, wp, 3), dtype=torch.float32,
-                            device=self.device)
+            x = torch.zeros(shape, dtype=dtype, device=self.device)
         for i, p in enumerate(prepared):
             x[i, : p.shape[0], : p.shape[1]] = p
         sizes_t = _upload(np.asarray(sizes, np.float32), self.device)
@@ -331,7 +357,7 @@ class MaskRCNNResNet:
             # filter sees them, so a lower threshold goes into the step
             run_cfg = dataclasses.replace(
                 cfg, score_thresh=float(self.score_thresh))
-        with torch.no_grad():
+        with torch.no_grad(), profiling.span("mrcnn.predict_step"):
             if self.devices is None:
                 out = predict_step(self._compute_params(), run_cfg, x,
                                    sizes_t, scales_t)
@@ -340,7 +366,7 @@ class MaskRCNNResNet:
                     lambda p, i, sz, sc: predict_step(p, run_cfg, i, sz, sc),
                     self.devices)(self._replica_params(), x, sizes_t,
                                   scales_t)
-        return out, sizes, n
+        return out, sizes, len(plan)
 
     def predict_collect(
         self, handle
@@ -350,8 +376,9 @@ class MaskRCNNResNet:
         threshold and paste the masks at full resolution on the host."""
         bboxes, probs, labels, scores, sizes = self.predict_collect_raw(
             handle)
-        masks = [paste_masks(b, p, *size)
-                 for b, p, size in zip(bboxes, probs, sizes)]
+        with profiling.span("mrcnn.paste"):
+            masks = [paste_masks(b, p, *size)
+                     for b, p, size in zip(bboxes, probs, sizes)]
         return bboxes, masks, labels, scores
 
     def predict_collect_raw(self, handle):
@@ -359,17 +386,22 @@ class MaskRCNNResNet:
         per image ``(bboxes, mask_probs (R, M, M), labels, scores)`` after
         the score threshold, and the original sizes. Evaluation scores these
         box-locally (``add_boxlocal``), skipping the full-resolution paste
-        (mask_rcnn_tpu/models/api.py:358-377)."""
-        out, sizes, n = handle
-        out = {k: v.cpu().numpy() for k, v in out.items()}
-        bboxes, probs, labels, scores = [], [], [], []
-        for i in range(n):
-            valid = out["valid"][i] & (out["scores"][i] >= self.score_thresh)
-            bboxes.append(out["boxes"][i][valid].astype(np.float32))
-            labels.append(out["labels"][i][valid].astype(np.int32))
-            scores.append(out["scores"][i][valid].astype(np.float32))
-            probs.append(out["mask_probs"][i][valid].astype(np.float32))
-        return bboxes, probs, labels, scores, sizes[:n]
+        (mask_rcnn_tpu/models/api.py:358-377). Spans: ``mrcnn.collect``
+        around the call, ``mrcnn.collect_wait`` around the copies back,
+        where the host waits for the device."""
+        with profiling.span("mrcnn.collect"):
+            out, sizes, n = handle
+            with profiling.span("mrcnn.collect_wait"):
+                out = {k: v.cpu().numpy() for k, v in out.items()}
+            bboxes, probs, labels, scores = [], [], [], []
+            for i in range(n):
+                valid = out["valid"][i] & (out["scores"][i]
+                                           >= self.score_thresh)
+                bboxes.append(out["boxes"][i][valid].astype(np.float32))
+                labels.append(out["labels"][i][valid].astype(np.int32))
+                scores.append(out["scores"][i][valid].astype(np.float32))
+                probs.append(out["mask_probs"][i][valid].astype(np.float32))
+            return bboxes, probs, labels, scores, sizes[:n]
 
     def predict(self, imgs: Sequence[np.ndarray]):
         return self.predict_collect(self.predict_submit(imgs))

@@ -97,17 +97,22 @@ def _run(cmd) -> str:
     return res.stdout + res.stderr
 
 
-def build() -> Path:
-    """Compile the sources unless a library of the same hash exists."""
+def library() -> Path:
+    """The library's path, keyed by a hash of the sources and flags."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     for name in SOURCES:
         h.update((CSRC / name).read_bytes())
-    out = BUILD_DIR / f"libmrcnn_kernels_{h.hexdigest()[:16]}.so"
+    return BUILD_DIR / f"libmrcnn_kernels_{h.hexdigest()[:16]}.so"
+
+
+def build() -> Path:
+    """Compile the sources unless a library of the same hash exists."""
+    out = library()
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     nvcc = _nvcc()
-    tag = f"{h.hexdigest()[:16]}.{os.getpid()}"
+    tag = f"{out.stem}.{os.getpid()}"
     objs = [BUILD_DIR / f"{Path(n).stem}.{tag}.o" for n in SOURCES]
     with ThreadPoolExecutor(len(SOURCES)) as pool:
         logs = list(pool.map(
@@ -125,15 +130,20 @@ def build() -> Path:
 
 
 def lib() -> ctypes.CDLL:
-    """The loaded kernel library, built on first use."""
+    """The loaded kernel library, built on first use, in the set-up span
+    ``mrcnn.kernels_build`` (nvcc ran) or ``mrcnn.kernels_load``."""
     global _lib
     with _lock:
         if _lib is None:
-            so = ctypes.CDLL(str(build()))
-            for name, argtypes in _SIGNATURES.items():
-                fn = getattr(so, name)
-                fn.argtypes = list(argtypes)
-                fn.restype = ctypes.c_int
+            from mask_rcnn_tpu_torch.utils import profiling
+
+            what = "load" if library().exists() else "build"
+            with profiling.setup_span(f"mrcnn.kernels_{what}"):
+                so = ctypes.CDLL(str(build()))
+                for name, argtypes in _SIGNATURES.items():
+                    fn = getattr(so, name)
+                    fn.argtypes = list(argtypes)
+                    fn.restype = ctypes.c_int
             _lib = so
     return _lib
 

@@ -13,7 +13,9 @@
   the next feed) and read a ``torch.profiler`` capture of it instead: the
   union of the device activity intervals, over the calls, from a capture
   that is checked for lost activities;
-* :func:`profile_stages`: the JAX function's per-stage table;
+* :func:`span`, :func:`setup_span`, :func:`first_call`: the port's own
+  spans (``mrcnn.<what>``) around the host's work inside its calls, in a
+  capture beside the device's activity and in :func:`spans`;
 * :func:`cost_of`: (FLOPs, bytes) of a call, replacing XLA's
   ``cost_analysis()``: FLOPs from ``FlopCounterMode`` (torch's convention:
   a convolution counts its padded taps, which XLA leaves out), bytes from a
@@ -24,12 +26,16 @@
 
 from __future__ import annotations
 
+import bisect
+import collections
 import contextlib
 import os
+import threading
 import time
-from typing import Callable, Dict, List, Tuple
+from typing import Callable, List, NamedTuple, Optional, Tuple
 
 import torch
+from torch.autograd.profiler import record_function
 from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils.flop_counter import FlopCounterMode
 
@@ -69,6 +75,136 @@ def trace(logdir: str):
     with profile(activities=activities) as prof:
         yield prof
     prof.export_chrome_trace(os.path.join(logdir, "trace.json"))
+
+
+# ---------------------------------------------------------------------------
+# Spans
+#
+# The port marks the host's work inside its calls with spans named
+# ``mrcnn.<what>``: a served batch's ``mrcnn.submit`` (children
+# ``mrcnn.prepare`` and ``mrcnn.predict_step``) and ``mrcnn.collect`` (child
+# ``mrcnn.collect_wait``), ``predict_collect``'s ``mrcnn.paste``, a train
+# step's ``mrcnn.train_step`` (children ``mrcnn.forward``,
+# ``mrcnn.backward``, ``mrcnn.all_reduce`` and ``mrcnn.update``), and the
+# set-up spans ``mrcnn.kernels_build`` or ``mrcnn.kernels_load`` and
+# ``mrcnn.first_call``.
+#
+# Each span is recorded twice while a torch profiler runs: as a
+# ``record_function`` annotation in the capture, beside the device's
+# activity, and in the in-process list that :func:`spans` returns. Kineto
+# stamps its host events on the Unix clock (``c10::getTime``), which
+# ``time.time_ns()`` reads, so both records share one clock (a test holds
+# each span to its annotation).
+
+
+class Span(NamedTuple):
+    """A closed span: stamps in ns on the profiler's clock, and the name of
+    the span that was open around it on its thread (None at the top)."""
+
+    name: str
+    start_ns: int
+    end_ns: int
+    parent: Optional[str]
+
+
+# The newest spans of the process, oldest first.
+SPAN_LIMIT = 1 << 16
+_SPANS = collections.deque(maxlen=SPAN_LIMIT)
+_open = threading.local()
+# Padded input shapes each entry has run in this process.
+_SEEN = set()
+_OFF = contextlib.nullcontext()
+# True while a torch profiler records this thread.
+_profiling = torch._C._autograd._profiler_enabled
+
+
+class _Span:
+    __slots__ = ("name", "annotate", "mark", "start", "parent")
+
+    def __init__(self, name: str, annotate: bool):
+        self.name = name
+        self.annotate = annotate
+
+    def __enter__(self):
+        stack = getattr(_open, "stack", None)
+        if stack is None:
+            stack = _open.stack = []
+        self.parent = stack[-1] if stack else None
+        stack.append(self.name)
+        self.mark = record_function(self.name) if self.annotate else None
+        self.start = time.time_ns()
+        if self.mark is not None:
+            self.mark.__enter__()
+        return self
+
+    def __exit__(self, *exc):
+        if self.mark is not None:
+            self.mark.__exit__(*exc)
+        end = time.time_ns()
+        _open.stack.pop()
+        _SPANS.append(Span(self.name, self.start, end, self.parent))
+        return False
+
+
+def span(name: str):
+    """A span around work on the hot path (each served batch, each train
+    step). While a torch profiler runs it enters ``record_function(name)``
+    and records a :class:`Span`; otherwise it does nothing past the check
+    that no profiler runs."""
+    return _Span(name, True) if _profiling() else _OFF
+
+
+def setup_span(name: str):
+    """A span around work done once a process: always recorded in
+    :func:`spans`, and annotated in the capture only while a profiler
+    runs."""
+    return _Span(name, _profiling())
+
+
+def first_call(key):
+    """``mrcnn.first_call`` (a :func:`setup_span`) around a call whose
+    ``key``, the entry and the padded input batch's ``(n, H, W, dtype)``,
+    this process has not run; nothing on later calls. The call launches
+    its device work and returns: the device's share of a first call (the
+    convolutions' algorithm search, the allocator's growth) lands in the
+    wait that follows it, and the host's share is in this span."""
+    if key in _SEEN:
+        return _OFF
+    _SEEN.add(key)
+    return setup_span("mrcnn.first_call")
+
+
+def spans() -> List[Span]:
+    """The recorded spans, oldest first (the newest :data:`SPAN_LIMIT`)."""
+    return list(_SPANS)
+
+
+def reset_spans() -> None:
+    _SPANS.clear()
+
+
+def self_times_ns(name: str, records: Optional[List[Span]] = None
+                  ) -> List[int]:
+    """Each span named ``name`` (of ``records``, by default :func:`spans`)
+    less the time its child spans cover, in ns, oldest first."""
+    records = spans() if records is None else records
+    children = sorted((s.start_ns, s.end_ns) for s in records
+                      if s.parent == name)
+    starts = [c[0] for c in children]
+    out = []
+    for s in records:
+        if s.name != name:
+            continue
+        covered, end = 0, s.start_ns
+        for lo, hi in children[bisect.bisect_left(starts, s.start_ns):]:
+            if lo > s.end_ns:
+                break
+            hi = min(hi, s.end_ns)
+            if hi > end:
+                covered += hi - max(lo, end)
+                end = hi
+        out.append(s.end_ns - s.start_ns - covered)
+    return out
 
 
 def sync(tree) -> None:
@@ -290,21 +426,6 @@ def time_train_steps_chained(step, state, batch, seed: int, reps: int = 12,
         loss = chain()
     float(loss)
     return (time.perf_counter() - t0) / iters / reps * 1000.0
-
-
-def profile_stages(stages: List[Tuple[str, Callable, tuple]],
-                   iters: int = 10) -> Dict[str, float]:
-    """Time named (fn, args) stages with :func:`time_fn`; prints the table
-    and returns {name: ms}."""
-    report = {}
-    for name, fn, args in stages:
-        report[name] = time_fn(fn, *args, iters=iters)
-    total = sum(report.values())
-    width = max(len(k) for k in report)
-    for k, v in report.items():
-        print(f"{k:<{width}} {v:8.2f} ms  {100 * v / total:5.1f}%")
-    print(f"{'total':<{width}} {total:8.2f} ms")
-    return report
 
 
 # ---------------------------------------------------------------------------

@@ -2,8 +2,8 @@
 ``ops/costs.py`` and the profiling tools) against the JAX package's on the
 CPU: ``cost_of`` against XLA's ``cost_analysis()`` on the same seeded
 inputs, the hand kernels' cost reports against ``chip_smoke.py``'s
-conventions, the timing helpers' chains, ``profile_stages``' table, the
-box helpers, and the four tools' bodies at a tiny size."""
+conventions, the timing helpers' chains, the box helpers, and the four
+tools' bodies at a tiny size."""
 
 import importlib
 
@@ -496,23 +496,6 @@ def test_device_busy_reads_a_real_capture():
     assert len(marks) == 2 and not any(r[0] for r in marks)
     with pytest.raises(RuntimeError, match="launches a run"):
         profiling._checked_busy_ns(records, 2)
-
-
-def test_profile_stages_prints_the_jax_table(monkeypatch, capsys):
-    """Given the same stage times, ``profile_stages`` prints the JAX
-    function's table and returns its dict."""
-    from mask_rcnn_tpu.utils import profiling as jax_profiling
-
-    times = iter([1.5, 12.25, 0.125, 1.5, 12.25, 0.125])
-    for mod in (jax_profiling, profiling):
-        monkeypatch.setattr(mod, "time_fn", lambda fn, *a, iters: next(times))
-    stages = [("backbone", None, ()), ("rpn proposals", None, ()),
-              ("head", None, ())]
-    want = jax_profiling.profile_stages(stages, iters=3)
-    want_out = capsys.readouterr().out
-    got = profiling.profile_stages(stages, iters=3)
-    assert got == want
-    assert capsys.readouterr().out == want_out
 
 
 def test_box_helpers_match_jax():
