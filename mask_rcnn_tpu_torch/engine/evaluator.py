@@ -194,7 +194,7 @@ class InstanceSegmentationEvaluator:
         # device before batch i's detections are fetched and pasted, so host
         # decode + paste + transfers overlap device compute (the api layer's
         # predict_submit/predict_collect split; results are bitwise identical
-        # to sequential predict — tests/test_api_stream.py). Models without
+        # to sequential predict — tests/test_torch_collect.py). Models without
         # the split (bare test stubs) fall back to blocking predict.
         submit = getattr(model, "predict_submit", None)
         collect_raw = getattr(model, "predict_collect_raw", None)

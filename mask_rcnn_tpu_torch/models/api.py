@@ -6,7 +6,12 @@ Preparation (resize to ``min_size`` capped by ``max_size``, mean
 subtraction, padding to the orientation bucket) runs on the model's device
 without cv2; mask pasting runs on the host. CUDA work is asynchronous, so
 :meth:`MaskRCNNResNet.predict_submit` returns before the device finishes and
-:meth:`MaskRCNNResNet.predict_stream` keeps several batches in flight.
+:meth:`MaskRCNNResNet.predict_stream` keeps several batches in flight. On a
+CUDA device each batch's outputs come back on their own: the submit queues
+their copies into pinned host memory behind the step and records an event
+after them, and the collect waits for that event alone, so the batches
+submitted after it stay queued on the device while the host thresholds,
+pastes and prepares the next batch.
 """
 
 from __future__ import annotations
@@ -58,6 +63,36 @@ def _upload(a: np.ndarray, device: torch.device) -> torch.Tensor:
     if device.type == "cuda":
         return t.pin_memory().to(device, non_blocking=True)
     return t.to(device)
+
+
+class PredictHandle(tuple):
+    """What :meth:`MaskRCNNResNet.predict_submit` returns. It unpacks as
+    ``(out, sizes, n)``: the step's outputs on the device, the original
+    (H, W) of each image and the number of images. On a CUDA device it
+    also carries ``host``, pinned host copies of ``out`` queued on the
+    device's stream behind the step, and ``ready``, the CUDA event
+    recorded after those copies; on the CPU both are None."""
+
+    def __new__(cls, out, sizes, n, host=None, ready=None):
+        handle = super().__new__(cls, (out, sizes, n))
+        handle.host = host
+        handle.ready = ready
+        return handle
+
+
+def _copy_back(out, device: torch.device):
+    """Queue pinned host copies of the CUDA tensors ``out`` on
+    ``device``'s current stream, behind the work that computes them, and
+    record an event after the copies -> (copies, event). Nothing waits for
+    the device. The copies come from the caching host allocator, which
+    hands a block out again only once the copy that used it has run."""
+    host = {k: torch.empty(v.shape, dtype=v.dtype, pin_memory=True)
+            for k, v in out.items()}
+    for k, v in out.items():
+        host[k].copy_(v, non_blocking=True)
+    ready = torch.cuda.Event()
+    ready.record(torch.cuda.current_stream(device))
+    return host, ready
 
 
 def find_imagenet_npz(n_layers: int) -> str:
@@ -226,6 +261,7 @@ class MaskRCNNResNet:
         self.uint8_input = uint8_input
         self._cast = (None, None)  # (params object, its compute-dtype copy)
         self._replicas = (None, None)  # (that copy, one copy a device)
+        self._newest = None  # ``ready`` event of the newest CUDA submit
 
     @property
     def n_class(self):
@@ -321,7 +357,11 @@ class MaskRCNNResNet:
     # -- inference -------------------------------------------------------
     def predict_submit(self, imgs: Sequence[np.ndarray]):
         """Prepare, pad and launch the predict step without waiting for
-        the device. Returns a handle for :meth:`predict_collect`.
+        the device. Returns a :class:`PredictHandle` for
+        :meth:`predict_collect` or :meth:`predict_collect_raw`: the step's
+        outputs, the images' sizes and count, and on a CUDA device the
+        outputs' copies to pinned host memory, queued after the step, with
+        the event that marks them done.
 
         Spans (``utils/profiling.py``): ``mrcnn.submit`` around the call,
         ``mrcnn.prepare`` and ``mrcnn.predict_step`` inside it, and
@@ -366,7 +406,12 @@ class MaskRCNNResNet:
                     lambda p, i, sz, sc: predict_step(p, run_cfg, i, sz, sc),
                     self.devices)(self._replica_params(), x, sizes_t,
                                   scales_t)
-        return out, sizes, len(plan)
+        first = next(iter(out.values()))
+        if not first.is_cuda:
+            return PredictHandle(out, sizes, len(plan))
+        host, ready = _copy_back(out, first.device)
+        self._newest = ready
+        return PredictHandle(out, sizes, len(plan), host, ready)
 
     def predict_collect(
         self, handle
@@ -386,13 +431,27 @@ class MaskRCNNResNet:
         per image ``(bboxes, mask_probs (R, M, M), labels, scores)`` after
         the score threshold, and the original sizes. Evaluation scores these
         box-locally (``add_boxlocal``), skipping the full-resolution paste
-        (mask_rcnn_tpu/models/api.py:358-377). Spans: ``mrcnn.collect``
-        around the call, ``mrcnn.collect_wait`` around the copies back,
-        where the host waits for the device."""
+        (mask_rcnn_tpu/models/api.py:358-377).
+
+        On a CUDA device the wait is for the handle's own ``ready`` event,
+        that is for its batch and its copies back: batches submitted after
+        it stay queued on the device. On the CPU the outputs are already
+        there. The arrays returned are copies that share no memory with
+        the handle. Spans: ``mrcnn.collect`` around the call,
+        ``mrcnn.collect_wait`` around the wait; at its end the count
+        ``mrcnn.collect_overlapped`` when the newest submitted batch is
+        still running, so the device had work queued while the host goes
+        on."""
         with profiling.span("mrcnn.collect"):
             out, sizes, n = handle
             with profiling.span("mrcnn.collect_wait"):
-                out = {k: v.cpu().numpy() for k, v in out.items()}
+                if handle.ready is None:
+                    out = {k: v.cpu().numpy() for k, v in out.items()}
+                else:
+                    handle.ready.synchronize()
+                    out = {k: v.numpy() for k, v in handle.host.items()}
+                    if not self._newest.query():
+                        profiling.count("mrcnn.collect_overlapped")
             bboxes, probs, labels, scores = [], [], [], []
             for i in range(n):
                 valid = out["valid"][i] & (out["scores"][i]

@@ -16,6 +16,7 @@
 * :func:`span`, :func:`setup_span`, :func:`first_call`: the port's own
   spans (``mrcnn.<what>``) around the host's work inside its calls, in a
   capture beside the device's activity and in :func:`spans`;
+  :func:`count`, the hot path's counts beside them (:func:`counters`);
 * :func:`cost_of`: (FLOPs, bytes) of a call, replacing XLA's
   ``cost_analysis()``: FLOPs from ``FlopCounterMode`` (torch's convention:
   a convolution counts its padded taps, which XLA leaves out), bytes from a
@@ -32,7 +33,7 @@ import contextlib
 import os
 import threading
 import time
-from typing import Callable, List, NamedTuple, Optional, Tuple
+from typing import Callable, Dict, List, NamedTuple, Optional, Tuple
 
 import torch
 from torch.autograd.profiler import record_function
@@ -95,6 +96,12 @@ def trace(logdir: str):
 # stamps its host events on the Unix clock (``c10::getTime``), which
 # ``time.time_ns()`` reads, so both records share one clock (a test holds
 # each span to its annotation).
+#
+# Counts of what happened on the hot path, by name, are kept beside the
+# spans, under the same rule: recorded only while a torch profiler runs,
+# cleared with them. ``predict_collect_raw`` counts
+# ``mrcnn.collect_overlapped``, a collect that returned while a later batch
+# still ran on the device.
 
 
 class Span(NamedTuple):
@@ -111,6 +118,8 @@ class Span(NamedTuple):
 SPAN_LIMIT = 1 << 16
 _SPANS = collections.deque(maxlen=SPAN_LIMIT)
 _open = threading.local()
+_COUNTS = collections.Counter()
+_COUNTS_LOCK = threading.Lock()
 # Padded input shapes each entry has run in this process.
 _SEEN = set()
 _OFF = contextlib.nullcontext()
@@ -174,13 +183,30 @@ def first_call(key):
     return setup_span("mrcnn.first_call")
 
 
+def count(name: str) -> None:
+    """Count one ``name`` on the hot path while a torch profiler runs;
+    otherwise do nothing past the check that no profiler runs."""
+    if _profiling():
+        with _COUNTS_LOCK:
+            _COUNTS[name] += 1
+
+
 def spans() -> List[Span]:
     """The recorded spans, oldest first (the newest :data:`SPAN_LIMIT`)."""
     return list(_SPANS)
 
 
+def counters() -> Dict[str, int]:
+    """What :func:`count` recorded, by name."""
+    with _COUNTS_LOCK:
+        return dict(_COUNTS)
+
+
 def reset_spans() -> None:
+    """Clear the recorded spans and counts."""
     _SPANS.clear()
+    with _COUNTS_LOCK:
+        _COUNTS.clear()
 
 
 def self_times_ns(name: str, records: Optional[List[Span]] = None
