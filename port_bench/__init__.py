@@ -7,6 +7,8 @@ One command runs one cell once::
 ``BENCHMARK.json`` at the repository's root names the cells, the
 configurations and the metrics; everything that belongs to one of them sits
 in a file of its own under this package (``configs/``, ``traffic/``,
-``limits/``, ``metrics/``), found by its name. ``reference/`` is the plain
-float32 model that decides ``correct``; it imports nothing of the port.
+``limits/``, ``metrics/``), found by its name, and everything that belongs
+to a model's architecture in ``archs/<architecture>.py``, which the
+configuration names. ``reference/`` is the plain float32 model that decides
+``correct``; it imports nothing of the port.
 """

@@ -43,10 +43,10 @@ from port_bench.traffic import rng
 def serve_control(cell, seed, device):
     """The numbers of the float8 reference's answers on ``check_images``
     images of the seed's pool."""
-    t, mc = cell.traffic, cell.config["model"]
+    t, mc, arch = cell.traffic, cell.config["model"], cell.arch
     batches = traffic.serve_batches(t, seed, device)
     R.full_precision()
-    params = weights.of_config(cell.config, device)
+    params = weights.of_config(arch, cell.config, device)
     keys = [(b, i) for b, batch in enumerate(batches)
             for i in range(len(batch))]
     pick = rng(seed, 7).choice(len(keys), min(t["check_images"], len(keys)),
@@ -56,16 +56,16 @@ def serve_control(cell, seed, device):
         for k in sorted(pick):
             b, i = keys[k]
             img, shape = batches[b][i], serve.padded(mc, batches[b])
-            d = R.detect(params, mc, img, shape, R.FP8, device)
-            probs = R.mask_probs(params, mc, d["features"], d["boxes"],
-                                 d["labels"], d["scale"], R.FP8)
+            d = arch.detect(params, mc, img, shape, R.FP8, device)
+            probs = arch.mask_probs(params, mc, d["features"], d["boxes"],
+                                    d["labels"], d["scale"], R.FP8)
             boxes = d["boxes"].cpu().numpy()
             masks = R.paste(boxes, probs.cpu().numpy(), *img.shape[1:])
             cases.append((img, shape, (boxes, masks,
                                        d["labels"].cpu().numpy().astype(
                                            "int32"),
                                        d["scores"].cpu().numpy())))
-    return check.serve_numbers(params, mc, cases)
+    return check.serve_numbers(arch, params, mc, cases)
 
 
 def train_control(cell, seed, device):
@@ -79,12 +79,12 @@ def train_control(cell, seed, device):
                                     device)[:td.COMPARED_STEPS]
     pri = [td._priorities(run, k, b) for k, b in enumerate(batches)]
     R.full_precision()
-    w0 = RT.flatten(weights.of_config(cfg, device))
+    w0 = RT.flatten(weights.of_config(cell.arch, cfg, device))
     runs = {}
     for name, prec in (("ref", R.FULL), ("prog", R.FP8)):
-        params = weights.of_config(cfg, device)
-        losses, g1, w3 = check.reference_steps(cfg, params, batches, pri,
-                                               prec)
+        params = weights.of_config(cell.arch, cfg, device)
+        losses, g1, w3 = check.reference_steps(cell.arch, cfg, params,
+                                               batches, pri, prec)
         runs[name] = {"losses": losses, "grad": g1, "w3": w3}
     return check.train_numbers(w0, runs["ref"], runs["prog"])
 

@@ -58,13 +58,14 @@ def _iou_np(a, b):
     return R.bbox_iou(torch.as_tensor(a)[None], torch.as_tensor(b)[None])[0]
 
 
-def serve_case(params, mc, img, padded, served, prec_ref=R.FULL):
+def serve_case(arch, params, mc, img, padded, served, prec_ref=R.FULL):
     """Numbers of one image: ``served`` = (boxes (R, 4), masks (R, H, W)
-    bool, labels (R,), scores (R,)) as the timed path returned them."""
-    dev = params["head"]["score"]["W"].device
+    bool, labels (R,), scores (R,)) as the timed path returned them;
+    ``arch`` (``archs/<name>.py``) gives the reference's model."""
+    dev = next(iter(RT.flatten(params).values())).device
     boxes, masks, labels, scores = served
     with torch.no_grad():
-        d = R.detect(params, mc, img, padded, prec_ref, dev)
+        d = arch.detect(params, mc, img, padded, prec_ref, dev)
         feat, scale = d["features"], d["scale"]
         size = img.shape[1:]
         out = {"score_gap": 0.0, "box_gap": 0.0, "mask_share": 0.0,
@@ -79,7 +80,7 @@ def serve_case(params, mc, img, padded, served, prec_ref=R.FULL):
             near, idx = iou.topk(min(TWINS, iou.shape[1]), dim=1)
             cand, inv = torch.unique(idx.reshape(-1), return_inverse=True)
             rois = d["anchor_rois"][cand]
-            o = R.head_chunked(params["head"], mc, feat, rois, prec_ref)
+            o = arch.score_rois(params, mc, feat, rois, prec_ref)
             prob, cbox = R.class_boxes(mc, rois, o["cls_loc"], o["score"],
                                        size, scale)
             inv = inv.reshape(idx.shape)
@@ -96,9 +97,9 @@ def serve_case(params, mc, img, padded, served, prec_ref=R.FULL):
                 out["box_gap"] = max(out["box_gap"], 1.0 - float(ious[best]))
                 out["score_gap"] = max(out["score_gap"], abs(
                     float(scores[r]) - float(prob[rows[best], lab[r]])))
-            probs = R.mask_probs(params, mc, feat, sb,
-                                 torch.as_tensor(labels, device=dev), scale,
-                                 prec_ref)
+            probs = arch.mask_probs(params, mc, feat, sb,
+                                    torch.as_tensor(labels, device=dev),
+                                    scale, prec_ref)
             ref_masks = R.paste(boxes, probs.cpu().numpy(), *size)
             diffs = unions = 0
             for r in range(len(boxes)):
@@ -124,10 +125,10 @@ def serve_case(params, mc, img, padded, served, prec_ref=R.FULL):
     return out
 
 
-def serve_numbers(params, mc, cases, prec_ref=R.FULL):
+def serve_numbers(arch, params, mc, cases, prec_ref=R.FULL):
     """The widest of each number over ``cases`` = [(image, padded (H, W),
     served)]."""
-    nums = [serve_case(params, mc, img, padded, served, prec_ref)
+    nums = [serve_case(arch, params, mc, img, padded, served, prec_ref)
             for img, padded, served in cases]
     out = {k: max(n[k] for n in nums) for k in
            ("score_gap", "box_gap", "mask_share", "miss_share")}
@@ -139,7 +140,7 @@ def serve_numbers(params, mc, cases, prec_ref=R.FULL):
 # Training
 
 
-def reference_steps(cfg, params, batches, priorities, prec=R.FULL):
+def reference_steps(arch, cfg, params, batches, priorities, prec=R.FULL):
     """The reference's first steps from ``params`` (updated in place) ->
     (losses [{term: float}], first gradient {leaf: tensor}, leaves)."""
     tr = cfg["train"]
@@ -150,7 +151,7 @@ def reference_steps(cfg, params, batches, priorities, prec=R.FULL):
     vel = {k: torch.zeros_like(flat[k]) for k in names}
     losses, g1 = [], None
     for batch, pri in zip(batches, priorities):
-        loss, terms = RT.train_loss(params, cfg, batch, pri, prec)
+        loss, terms = arch.train_loss(params, cfg, batch, pri, prec)
         grads = torch.autograd.grad(loss, [flat[k] for k in names])
         losses.append({k: float(v.detach()) for k, v in terms.items()})
         if g1 is None:

@@ -1,6 +1,8 @@
-"""The benchmark's own yardstick: the card's published peaks, the FLOPs of
-the model's work worked out from the configuration's shapes, and the bytes
-that a kernel's roofline floor counts.
+"""The benchmark's own yardstick: the card's published peaks, and the
+ResNet trunk's building blocks from which each architecture
+(``archs/<name>.py``) works out the FLOPs of the model's work from the
+configuration's shapes, and the bytes that a kernel's roofline floor
+counts.
 
 FLOPs count what ``torch.utils.flop_counter.FlopCounterMode`` counts on the
 plain reference (``port_bench/reference``): 2 a multiply-accumulate of
@@ -61,97 +63,6 @@ def _stage(h, w, stage, n_blocks, stride=None):
         more, h, w = _block_convs(h, w, c_out, mid, c_out, 1, False)
         convs += more
     return convs, h, w
-
-
-def backbone_convs(model, h, w):
-    """(per-stage lists of (flops, kind)) of one image at the padded
-    (h, w): the stem, res2, res3, res4; and the C4 feature size."""
-    blocks = BLOCKS[model["n_layers"]]
-    h2, w2 = _out(h, 7, 2, 3), _out(w, 7, 2, 3)
-    stem = [(conv(1, h2, w2, 3, 64, 7), "input")]
-    h4, w4 = _out(h2, 3, 2, 1), _out(w2, 3, 2, 1)
-    res2, h4, w4 = _stage(h4, w4, "res2", blocks[0])
-    res3, h8, w8 = _stage(h4, w4, "res3", blocks[1])
-    res4, h16, w16 = _stage(h8, w8, "res4", blocks[2])
-    return {"stem": stem, "res2": res2, "res3": res3, "res4": res4}, (h16,
-                                                                      w16)
-
-
-def rpn_flops(model, hf, wf):
-    a = len(model["ratios"]) * len(model["anchor_scales"])
-    return (conv(1, hf, wf, 1024, model["rpn_hidden"], 3)
-            + conv(1, hf, wf, model["rpn_hidden"], 5 * a, 1))
-
-
-def res5_flops(model):
-    """One roi's res5 at the pooled 7x7 (stride 1 with the 14-bin
-    RoIAlign of ``roi_size`` 14)."""
-    s5 = model["roi_size"] // 7
-    size = 7 if s5 > 1 else model["roi_size"]
-    convs, _, _ = _stage(size, size, "res5", 3, stride=1 if s5 > 1 else 2)
-    return sum(f for f, _ in convs), size
-
-
-def box_flops(model):
-    n_class = model["n_fg_class"] + 1
-    return 2 * 2048 * 5 * n_class  # cls_loc (4 n_class) and score
-
-
-def mask_flops(model):
-    _, size = res5_flops(model)
-    deconv = 2 * size * size * 2048 * 256 * 4
-    return deconv + conv(1, 2 * size, 2 * size, 256, model["n_fg_class"], 1)
-
-
-def predict_flops(model, h, w, n_images, n_dets):
-    """A predict step's FLOPs: ``n_images`` at the padded (h, w), the box
-    head on the test proposals of each, and res5 with the mask branch on
-    ``n_dets`` detections in all."""
-    convs, (hf, wf) = backbone_convs(model, h, w)
-    per_image = (sum(f for stage in convs.values() for f, _ in stage)
-                 + rpn_flops(model, hf, wf))
-    rois = model["proposal"]["n_test_post_nms"]
-    res5, _ = res5_flops(model)
-    return (n_images * (per_image + rois * (res5 + box_flops(model)))
-            + n_dets * (res5 + mask_flops(model)))
-
-
-def train_flops(model, train, h, w, n_images):
-    """A train step's FLOPs, forward and backward, at the padded (h, w):
-    conv1, bn1 and res2 frozen and cut from the gradient, so res3's first
-    convolutions compute no input gradient; every other convolution and
-    product computes its weight's gradient and its input's (each as much
-    as its forward)."""
-    convs, (hf, wf) = backbone_convs(model, h, w)
-    fwd = sum(f for stage in convs.values() for f, _ in stage)
-    bwd = 0
-    for name in ("res3", "res4"):
-        for i, (f, kind) in enumerate(convs[name]):
-            first_block = i < 4
-            bwd += f if (name == "res3" and first_block
-                         and kind == "input") else 2 * f
-    rpn = rpn_flops(model, hf, wf)
-    pt = train["proposal_target"]
-    rois = pt["n_sample"]
-    pos = min(int(round(rois * pt["pos_ratio"])), rois)
-    res5, _ = res5_flops(model)
-    head = rois * (res5 + box_flops(model)) + pos * mask_flops(model)
-    return n_images * (fwd + bwd + 3 * rpn + 3 * head)
-
-
-def roi_align_bytes(n, hf, wf, rois, model, dtype):
-    """K1's floor: the features read once, the rois read once, the pooled
-    bins (7x7 of the 14-bin grid) written once."""
-    b = BYTES[dtype]
-    _, size = res5_flops(model)
-    return (n * hf * wf * 1024 * b + n * rois * 16
-            + n * rois * size * size * 1024 * b)
-
-
-def roi_align_bwd_bytes(n, hf, wf, rois, model, dtype):
-    """K7's floor: the pooled gradient read once, the rois read once, the
-    features' gradient written once."""
-    return roi_align_bytes(n, hf, wf, rois, model, dtype)
 
 
 def floor_seconds(n_bytes, flops, peaks, kind="bf16"):

@@ -5,11 +5,12 @@ What a run holds for the per-layer readers (``metrics/<name>.py``):
 
 * ``run.window``: ``seconds`` (host clock, start to end of the window),
   ``units`` (images, requests or steps completed in it), ``flops``
-  (their analytic count, ``counts.py``) and the mode's own host-clock
-  readings;
+  (their analytic count, the architecture's ``predict_flops`` or
+  ``train_flops``) and the mode's own host-clock readings;
 * ``run.trace``: the summary of the traced segment (``trace.reduce``)
-  and the mode's ``roofline`` entries, ``{kernel: (floor seconds,
-  device seconds)}``.
+  and its ``roofline`` entries, ``{kernel: (floor seconds, device
+  seconds)}``, from the architecture's ``serve_rooflines`` or
+  ``train_rooflines``.
 """
 
 from __future__ import annotations

@@ -13,7 +13,7 @@ import time
 
 import numpy as np
 
-from port_bench import counts, trace, traffic
+from port_bench import trace, traffic
 from port_bench.modes import serve
 
 GRACE_S = 60.0
@@ -61,7 +61,8 @@ def _serve(run, offsets, t0, close):
         st["served"].setdefault((k, 0), (st["pool"][k], st["shapes"][k],
                                          serve.per_image(res, 0)))
         n_dets = len(res[0][0])
-        flops += counts.predict_flops(run.model, *st["shapes"][k], 1, n_dets)
+        flops += run.cell.arch.predict_flops(run.model, *st["shapes"][k], 1,
+                                             n_dets)
         if not serve.finite_result(res):
             lat[-1] = float("inf")
     return lat, submit, flops, last
@@ -87,8 +88,8 @@ def traced(run):
     shapes = [(st["shapes"][i % len(st["pool"])], 1)
               for i in range(len(lat))]
     run.trace = {"summary": summary,
-                 "roofline": {"roi_align": serve.k1_roofline(run, summary,
-                                                             shapes)}}
+                 "roofline": run.cell.arch.serve_rooflines(run, summary,
+                                                           shapes)}
 
 
 def release(run):

@@ -12,7 +12,7 @@ from __future__ import annotations
 import contextlib
 import time
 
-from port_bench import counts, trace, traffic
+from port_bench import trace, traffic
 from port_bench.modes import serve
 from port_bench.reference import model as R
 
@@ -72,8 +72,8 @@ def window(run, seconds, t0):
         n_dets = sum(len(x) for x in res[0])
         images += len(batch)
         dets += n_dets
-        flops += counts.predict_flops(run.model, *st["shapes"][b],
-                                      len(batch), n_dets)
+        flops += run.cell.arch.predict_flops(run.model, *st["shapes"][b],
+                                             len(batch), n_dets)
         if not serve.finite_result(res):
             run.failed += len(batch)
     run.attempted = submitted
@@ -89,8 +89,8 @@ def traced(run):
         run.device)
     shapes = [(st["shapes"][b], len(st["batches"][b])) for b, _, _ in done]
     run.trace = {"summary": summary,
-                 "roofline": {"roi_align": serve.k1_roofline(run, summary,
-                                                             shapes)}}
+                 "roofline": run.cell.arch.serve_rooflines(run, summary,
+                                                           shapes)}
 
 
 def release(run):

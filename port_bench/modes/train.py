@@ -14,8 +14,7 @@ import time
 
 import torch
 
-from port_bench import check, counts, trace, traffic, weights
-from port_bench.modes.serve import port_config
+from port_bench import check, trace, traffic, weights
 from port_bench.reference import model as R
 from port_bench.reference import train as RT
 
@@ -25,10 +24,8 @@ COMPARED_STEPS = 3
 def _sizes(run, batch):
     mc = run.model
     n, h, w = batch["image"].shape[:3]
-    a = len(mc["ratios"]) * len(mc["anchor_scales"])
-    s = mc["feat_stride"]
     cand = mc["proposal"]["n_train_post_nms"] + batch["bbox"].shape[1]
-    return n, h, w, (h // s) * (w // s) * a, cand
+    return n, h, w, run.cell.arch.anchor_count(mc, h, w), cand
 
 
 def _priorities(run, step, batch):
@@ -49,14 +46,14 @@ def setup(run):
     )
     from mask_rcnn_tpu_torch.utils.checkpoint import flatten_params
 
-    tr = run.cell.config["train"]
-    params = weights.of_config(run.cell.config, run.device)
+    tr, arch = run.cell.config["train"], run.cell.arch
+    params = weights.of_config(arch, run.cell.config, run.device)
     opt, _ = make_optimizer(params, tr["lr"], tr["total_steps"],
                             momentum=tr["momentum"],
                             weight_decay=tr["weight_decay"])
     state = create_train_state(params, opt)
     step_fn = make_train_step(
-        port_config(run.model), opt,
+        arch.port_config(run.model), opt,
         proposal_cfg=ProposalTargetConfig(**tr["proposal_target"]),
         anchor_cfg=AnchorTargetConfig(**tr["anchor_target"]))
     batches = traffic.train_batches(run.cell.traffic, run.model, run.seed,
@@ -93,8 +90,8 @@ def _steps(run, until, spans=False):
         dispatch.append(time.perf_counter() - t)
         losses.append(met["loss"])
         n, h, w, _, _ = _sizes(run, batch)
-        flops += counts.train_flops(run.model, run.cell.config["train"], h,
-                                    w, n)
+        flops += run.cell.arch.train_flops(run.model,
+                                           run.cell.config["train"], h, w, n)
         st["step"] += 1
     return losses, dispatch, flops
 
@@ -117,18 +114,9 @@ def traced(run):
     (losses, _, _), summary = trace.capture(
         lambda: _steps(run, time.perf_counter() + seconds, spans=True),
         run.device)
-    n, h, w, _, _ = _sizes(run, run.state["batches"][0])
-    mc = run.model
-    s = mc["feat_stride"]
-    rois = run.cell.config["train"]["proposal_target"]["n_sample"]
-    sec, launches = trace.kernel(summary, "roi_align_bwd_kernel")
-    if launches != len(losses):
-        raise RuntimeError(f"traced {launches} RoIAlign backward launches "
-                           f"for {len(losses)} steps")
-    floor = len(losses) * counts.roi_align_bwd_bytes(
-        n, h // s, w // s, rois, mc, mc["compute_dtype"])
-    run.trace = {"summary": summary, "roofline": {
-        "roi_align_bwd": (floor / run.peaks["bytes_per_s"], sec)}}
+    run.trace = {"summary": summary,
+                 "roofline": run.cell.arch.train_rooflines(
+                     run, summary, len(losses), run.state["batches"][0])}
 
 
 def release(run):
@@ -140,12 +128,12 @@ def release(run):
 
 def compare(run, evidence):
     R.full_precision()
-    cfg, tr = run.cell.config, run.cell.config["train"]
-    w0 = RT.flatten(weights.of_config(cfg, run.device))
-    params = weights.of_config(cfg, run.device)
+    cfg, tr, arch = run.cell.config, run.cell.config["train"], run.cell.arch
+    w0 = RT.flatten(weights.of_config(arch, cfg, run.device))
+    params = weights.of_config(arch, cfg, run.device)
     batches = evidence["batches"]
     pri = [_priorities(run, k, b) for k, b in enumerate(batches)]
-    losses, g1, w3 = check.reference_steps(cfg, params, batches, pri)
+    losses, g1, w3 = check.reference_steps(arch, cfg, params, batches, pri)
     ref = {"losses": losses, "grad": g1, "w3": w3}
     prog = {"losses": evidence["losses"], "w3": evidence["w3"],
             "grad": {k: v / -tr["lr"] - tr["weight_decay"] * w0[k]

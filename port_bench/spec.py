@@ -3,16 +3,26 @@ checkout's root names the cell's configuration, traffic and metrics; each
 of those is a file of its own under ``port_bench/``:
 
 * ``configs/<config>.json`` (the path ``BENCHMARK.json`` gives): the
-  model's sizes (``model``), training's settings (``train``) and the
-  weights' scales (``weights``);
+  model's architecture (``architecture``), sizes (``model``), training's
+  settings (``train``) and the weights' scales (``weights``);
+* ``archs/<architecture>.py``: everything that depends on the model's
+  architecture, which the harness reaches only through ``Cell.arch``:
+  ``port_config(model)`` (the port's config object), ``layout(model,
+  stds)`` (the weights' draw order and shapes), ``anchor_count(model, h,
+  w)``, ``predict_flops(model, h, w, n_images, n_dets)``,
+  ``train_flops(model, train, h, w, n_images)``, ``serve_rooflines(run,
+  summary, shapes)`` and ``train_rooflines(run, summary, n_steps, batch)``
+  (``{kernel: (floor seconds, device seconds)}`` of a traced segment), and
+  the reference's ``detect``, ``score_rois``, ``mask_probs`` and
+  ``train_loss``, whose features nothing else looks into;
 * ``traffic/<traffic>.json``: the traffic's parameters, whose ``mode``
   names the code that runs it (``modes/<mode>.py``);
 * ``limits/<cell>.json``: the limit of each number that decides
   ``correct``;
 * ``metrics/<metric>.py``: one per-layer metric's reader, ``read(run)``.
 
-A new cell, configuration or metric is new files and new entries: nothing
-here names one.
+A new cell, configuration, architecture or metric is new files and new
+entries: nothing here names one.
 """
 
 from __future__ import annotations
@@ -22,6 +32,7 @@ import importlib
 import importlib.util
 import json
 import os.path as osp
+import types
 
 HERE = osp.dirname(osp.abspath(__file__))
 
@@ -36,6 +47,7 @@ class Cell:
     end_to_end: list
     per_layer: list
     root: str
+    arch: types.ModuleType
 
     @property
     def mode(self) -> str:
@@ -60,6 +72,9 @@ def load(name: str, root: str = None) -> Cell:
     conf = next(c for c in bench["configs"] if c["name"] == w["config"])
     with open(osp.join(root, conf["file"])) as f:
         config = json.load(f)
+    if "architecture" not in config:
+        raise ValueError(f"{conf['file']} names no 'architecture' (the "
+                         "module port_bench/archs/<architecture>.py)")
     with open(osp.join(root, "port_bench", "traffic",
                        w["traffic"] + ".json")) as f:
         traffic = json.load(f)
@@ -70,18 +85,30 @@ def load(name: str, root: str = None) -> Cell:
             limits = json.load(f)
     return Cell(name, w["chips"], config, traffic, limits,
                 [m for m in bench["end_to_end"] if _applies(m, name)],
-                [m for m in bench["per_layer"] if _applies(m, name)], root)
+                [m for m in bench["per_layer"] if _applies(m, name)], root,
+                architecture(root, config["architecture"]))
 
 
 def mode(cell: Cell):
     return importlib.import_module(f"port_bench.modes.{cell.mode}")
 
 
-def reader(cell: Cell, metric: str):
-    """The ``read(run)`` of ``metrics/<metric>.py``."""
-    path = osp.join(cell.root, "port_bench", "metrics", metric + ".py")
+def _load(root, folder, name):
+    """The module ``port_bench/<folder>/<name>.py`` under ``root``, loaded
+    by its path."""
+    path = osp.join(root, "port_bench", folder, name + ".py")
     spec = importlib.util.spec_from_file_location(
-        "port_bench.metrics." + metric.replace(".", "_"), path)
+        f"port_bench.{folder}.{name.replace('.', '_')}", path)
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
-    return mod.read
+    return mod
+
+
+def architecture(root: str, name: str):
+    """The module ``archs/<name>.py`` under ``root``."""
+    return _load(root, "archs", name)
+
+
+def reader(cell: Cell, metric: str):
+    """The ``read(run)`` of ``metrics/<metric>.py``."""
+    return _load(cell.root, "metrics", metric).read

@@ -1,4 +1,4 @@
-"""The analytic FLOP counts of ``counts.py`` equal what torch's
+"""The analytic FLOP counts of ``archs/c4.py`` equal what torch's
 ``FlopCounterMode`` counts on the plain reference at a tiny size: a
 predict step and a train step, forward and backward."""
 
@@ -6,12 +6,13 @@ import pytest
 import torch
 from torch.utils.flop_counter import FlopCounterMode
 
-from port_bench import counts, traffic, weights
+from port_bench import spec, traffic, weights
 from port_bench.reference import model as R
 from port_bench.reference import train as RT
 from port_bench.tests import tiny
 
 SEED = 77
+C4 = spec.architecture(tiny.REPO, "c4")
 
 
 @pytest.fixture(autouse=True)
@@ -25,7 +26,7 @@ def _threads():
 @pytest.mark.parametrize("layers", [50, 101])
 def test_predict_flops(layers):
     model = dict(tiny.MODEL, n_layers=layers)
-    params = weights.make(model, tiny.WEIGHTS, SEED, "cpu")
+    params = weights.make(C4, model, tiny.WEIGHTS, SEED, "cpu")
     h, w = 128, 192
     x = torch.zeros((1, 3, h, w))
     dets = 7
@@ -36,7 +37,7 @@ def test_predict_flops(layers):
         R.head(params["head"], model, f, rois[:dets], R.FULL, bbox=False,
                mask=True)
     assert len(rois) == model["proposal"]["n_test_post_nms"]
-    assert fc.get_total_flops() == counts.predict_flops(model, h, w, 1, dets)
+    assert fc.get_total_flops() == C4.predict_flops(model, h, w, 1, dets)
 
 
 def test_train_flops():
@@ -45,7 +46,7 @@ def test_train_flops():
     batch = traffic.train_batches(tiny.TRAFFIC["tiny-train"], model, SEED,
                                   "cpu")[0]
     n, h, w = batch["image"].shape[:3]
-    params = weights.make(model, tiny.WEIGHTS, SEED, "cpu")
+    params = weights.make(C4, model, tiny.WEIGHTS, SEED, "cpu")
     flat = RT.flatten(params)
     names = [k for k in flat if RT.trainable(k)]
     for k in names:
@@ -55,5 +56,5 @@ def test_train_flops():
     with FlopCounterMode(display=False) as fc:
         loss, _ = RT.train_loss(params, cfg, batch, pri, R.FULL)
         torch.autograd.grad(loss, [flat[k] for k in names])
-    assert fc.get_total_flops() == counts.train_flops(model, cfg["train"], h,
-                                                       w, n)
+    assert fc.get_total_flops() == C4.train_flops(model, cfg["train"], h, w,
+                                                   n)

@@ -25,9 +25,8 @@ def test_the_command_loads_no_jax():
             "import port_bench.modes.stream, port_bench.modes.online\n"
             "import port_bench.modes.train\n"
             "from port_bench import spec\n"
-            "from port_bench.modes import serve\n"
-            "serve.port_config(spec.load('r50c4-coco-stream-b4').config"
-            "['model'])\n"
+            "cell = spec.load('r50c4-coco-stream-b4')\n"
+            "cell.arch.port_config(cell.config['model'])\n"
             "import mask_rcnn_tpu_torch.models.api\n"
             "import mask_rcnn_tpu_torch.engine.trainer\n")
     names = _loaded(code)
@@ -39,7 +38,9 @@ def test_the_reference_loads_nothing_of_the_port():
     names = _loaded("import port_bench.reference.model, "
                     "port_bench.reference.train, port_bench.check, "
                     "port_bench.counts, port_bench.traffic, "
-                    "port_bench.weights")
+                    "port_bench.weights\n"
+                    "from port_bench import spec\n"
+                    "spec.architecture('.', 'c4')")
     assert not names & (FORBIDDEN | {"mask_rcnn_tpu_torch"})
 
 

@@ -7,13 +7,13 @@ import numpy as np
 import pytest
 import torch
 
-from port_bench import traffic, weights
-from port_bench.modes.serve import port_config
+from port_bench import spec, traffic, weights
 from port_bench.reference import model as R
 from port_bench.reference import train as RT
 from port_bench.tests import tiny
 
 SEED = 12345678901
+C4 = spec.architecture(tiny.REPO, "c4")
 
 
 @pytest.fixture(autouse=True)
@@ -28,10 +28,11 @@ def test_weights_have_the_ports_layout():
     from mask_rcnn_tpu_torch.models.mask_rcnn import init_params
     from mask_rcnn_tpu_torch.utils.checkpoint import flatten_params
 
-    cfg = port_config(tiny.MODEL)
+    cfg = C4.port_config(tiny.MODEL)
     with torch.device("meta"):
         theirs = flatten_params(init_params(cfg, torch.Generator(), "meta"))
-    ours = flatten_params(weights.make(tiny.MODEL, tiny.WEIGHTS, SEED, "cpu"))
+    ours = flatten_params(weights.make(C4, tiny.MODEL, tiny.WEIGHTS, SEED,
+                                       "cpu"))
     assert {k: tuple(v.shape) for k, v in ours.items()} == \
         {k: tuple(v.shape) for k, v in theirs.items()}
 
@@ -39,8 +40,8 @@ def test_weights_have_the_ports_layout():
 def test_inference_matches_the_port():
     from mask_rcnn_tpu_torch.models.api import MaskRCNNResNet
 
-    params = weights.make(tiny.MODEL, tiny.WEIGHTS, SEED, "cpu")
-    api = MaskRCNNResNet.from_config(port_config(tiny.MODEL), params,
+    params = weights.make(C4, tiny.MODEL, tiny.WEIGHTS, SEED, "cpu")
+    api = MaskRCNNResNet.from_config(C4.port_config(tiny.MODEL), params,
                                      device="cpu")
     imgs = traffic.serve_batches(tiny.TRAFFIC["tiny-stream"], SEED, "cpu")[0]
     boxes, masks, labels, scores = api.predict(imgs)
@@ -84,11 +85,11 @@ def test_train_steps_match_the_port():
         return traffic.priorities({}, SEED, k, n, (h // 16) * (w // 16) * 9,
                                   100 + b["bbox"].shape[1], "cpu")
 
-    params = weights.make(tiny.MODEL, tiny.WEIGHTS, SEED, "cpu")
+    params = weights.make(C4, tiny.MODEL, tiny.WEIGHTS, SEED, "cpu")
     opt, _ = make_optimizer(params, tr["lr"], tr["total_steps"])
     state = create_train_state(params, opt)
     step = make_train_step(
-        port_config(tiny.MODEL), opt,
+        C4.port_config(tiny.MODEL), opt,
         proposal_cfg=ProposalTargetConfig(**tr["proposal_target"]),
         anchor_cfg=AnchorTargetConfig(**tr["anchor_target"]))
     theirs = []
@@ -101,12 +102,12 @@ def test_train_steps_match_the_port():
     from port_bench import check
 
     ours, g1, w2 = check.reference_steps(
-        cfg, weights.make(tiny.MODEL, tiny.WEIGHTS, SEED, "cpu"), batches,
-        [pri(k, b) for k, b in enumerate(batches)])
+        C4, cfg, weights.make(C4, tiny.MODEL, tiny.WEIGHTS, SEED, "cpu"),
+        batches, [pri(k, b) for k, b in enumerate(batches)])
     for a, b in zip(theirs, ours):
         for term in RT.TERMS:
             assert a[term] == pytest.approx(b[term], rel=1e-4, abs=1e-6)
-    w0 = RT.flatten(weights.make(tiny.MODEL, tiny.WEIGHTS, SEED, "cpu"))
+    w0 = RT.flatten(weights.make(C4, tiny.MODEL, tiny.WEIGHTS, SEED, "cpu"))
     assert set(v1) == set(g1)
     for n in g1:
         g = v1[n] / -tr["lr"] - tr["weight_decay"] * w0[n]

@@ -76,8 +76,8 @@ def make_root(dst):
                     ignore=shutil.ignore_patterns("__pycache__"))
     pb = osp.join(dst, "port_bench")
     with open(osp.join(pb, "configs", "tiny.json"), "w") as f:
-        json.dump({"source": "test", "model": MODEL, "train": TRAIN,
-                   "weights": WEIGHTS}, f)
+        json.dump({"source": "test", "architecture": "c4", "model": MODEL,
+                   "train": TRAIN, "weights": WEIGHTS}, f)
     for name, t in TRAFFIC.items():
         with open(osp.join(pb, "traffic", name + ".json"), "w") as f:
             json.dump(t, f)
@@ -107,5 +107,6 @@ def make_root(dst):
 
 
 def config(**model):
-    return {"model": dict(copy.deepcopy(MODEL), **model),
+    return {"architecture": "c4",
+            "model": dict(copy.deepcopy(MODEL), **model),
             "train": copy.deepcopy(TRAIN), "weights": dict(WEIGHTS)}

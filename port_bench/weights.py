@@ -1,8 +1,8 @@
 """Seeded weights, made on the device in one draw: the nested layout that
 the port's ``MaskRCNNResNet.from_config`` and ``make_train_step`` take
-(OIHW convolutions, frozen BatchNorm as ``scale`` and ``bias``, the box
-and class layers as (2048, K) matrices), handed as they are to the plain
-reference.
+(OIHW convolutions, frozen BatchNorm as ``scale`` and ``bias``), in the
+draw order and shapes of the architecture's ``layout``, handed as they are
+to the plain reference.
 
 The distributions are the port's initializer's (he_normal convolutions,
 the stem's affine at 0.5, each residual branch's last affine at 0.1, the
@@ -17,7 +17,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from port_bench.counts import BLOCKS, STAGES
+from port_bench.counts import STAGES
 
 RESIDUAL_SCALE = 0.1
 
@@ -44,39 +44,6 @@ def _stage(spec, path, stage, n_blocks):
         _bottleneck(spec, f"{path}/{stage}/b{i}", c_out, mid, c_out, False)
 
 
-def layout(model, stds):
-    """[(path, (kind, shape or channels, std or scale))] in draw order."""
-    blocks = BLOCKS[model["n_layers"]]
-    n_class = model["n_fg_class"] + 1
-    a = len(model["ratios"]) * len(model["anchor_scales"])
-    hidden = model["rpn_hidden"]
-    spec = [("extractor/conv1/W", ("normal", (64, 3, 7, 7),
-                                   (2.0 / 147) ** 0.5)),
-            ("extractor/bn1", ("affine", 64, 0.5))]
-    for i, stage in enumerate(("res2", "res3", "res4")):
-        _stage(spec, "extractor", stage, blocks[i])
-    rpn = stds["rpn"]
-    spec += [("rpn/conv1/W", ("normal", (hidden, 1024, 3, 3), rpn)),
-             ("rpn/conv1/b", ("zeros", hidden)),
-             ("rpn/loc/W", ("normal", (4 * a, hidden, 1, 1), rpn)),
-             ("rpn/loc/b", ("zeros", 4 * a)),
-             ("rpn/score/W", ("normal", (a, hidden, 1, 1), rpn)),
-             ("rpn/score/b", ("zeros", a))]
-    _stage(spec, "head", "res5", 3)
-    spec += [("head/cls_loc/W", ("normal", (2048, 4 * n_class),
-                                 stds["cls_loc"])),
-             ("head/cls_loc/b", ("zeros", 4 * n_class)),
-             ("head/score/W", ("normal", (2048, n_class), stds["score"])),
-             ("head/score/b", ("zeros", n_class)),
-             ("head/deconv6/W", ("normal", (2048, 256, 2, 2),
-                                 stds["deconv6"])),
-             ("head/deconv6/b", ("zeros", 256)),
-             ("head/mask/W", ("normal", (model["n_fg_class"], 256, 1, 1),
-                              stds["mask"])),
-             ("head/mask/b", ("zeros", model["n_fg_class"]))]
-    return spec
-
-
 def generator(seed, device, stream=0):
     """A generator on ``device`` seeded from (seed, stream): any whole
     seed, however large."""
@@ -85,19 +52,19 @@ def generator(seed, device, stream=0):
         int(state.generate_state(1, np.uint64)[0]) >> 1)
 
 
-def of_config(config, device):
+def of_config(arch, config, device):
     """The configuration's weights: drawn from its ``weights.seed``, the
     same in every run. They decide which proposals win, so how large the
     detections are and how long their paste takes: weights drawn from the
     run's seed moved the stream cell's rate by half from seed to seed."""
-    return make(config["model"], config["weights"],
+    return make(arch, config["model"], config["weights"],
                 config["weights"]["seed"], device)
 
 
-def make(model, stds, seed, device):
-    """The float32 weights of ``seed``: one normal draw on the device for
-    every weight, scaled leaf by leaf."""
-    spec = layout(model, stds)
+def make(arch, model, stds, seed, device):
+    """The float32 weights of ``seed`` in ``arch.layout``'s order: one
+    normal draw on the device for every weight, scaled leaf by leaf."""
+    spec = arch.layout(model, stds)
     total = sum(int(np.prod(s)) for _, (kind, s, *_) in spec
                 if kind == "normal")
     buf = torch.randn(total, generator=generator(seed, device, 0),
